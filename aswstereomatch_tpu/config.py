@@ -1,18 +1,17 @@
-"""Canonical configuration for the TPU-native stereo-matching engine.
+"""Canonical configuration for the stereo-matching engine.
 
 This module pins the *numeric contract* of the whole framework: every stage of
 the pipeline (preprocess -> cost -> aggregation -> WTA -> post-process) is
 defined in terms of the parameters here, and the NumPy oracle
-(`aswstereomatch_tpu.models.oracle_numpy`), the vectorized JAX pipeline
-(`aswstereomatch_tpu.models.pipeline`), and the fused Pallas kernels
-(`aswstereomatch_tpu.ops.pallas`) must agree bit-for-bit in f32 on the same
-config (tests enforce this).
+(`aswstereomatch_tpu.models.oracle_numpy`) and the vectorized JAX pipeline
+(`aswstereomatch_tpu.models.pipeline`) must agree on the same config to f32
+tolerance (tests enforce this).
 
 Capability parity note (SURVEY.md section 2.1 "Parameter block"): the reference
 (ZhangYY12345/aswStereoMatch, C++/OpenCV; mount empty at survey time, see
 SURVEY.md section 0) carries a compiled-in parameter struct with window size,
 disparity range, gamma_c / gamma_p, truncations tau1/tau2, blend alpha and an
-LR tolerance.  ``StereoConfig`` is the TPU-native equivalent, extended with
+LR tolerance.  ``StereoConfig`` is the JAX equivalent, extended with
 mesh / tiling fields the single-process reference has no analog for
 (SURVEY.md section 2.2).
 
@@ -26,8 +25,8 @@ Pinned numeric conventions (all implementations MUST follow these):
     arithmetic indices* — conceptually ``Lp = pad_edge(left, r)`` in x/y and
     ``Rp = pad_edge(right, (r + D - 1, r))`` in x — rather than re-clamping
     composed coordinates.  This makes every access in every stage a pure
-    shift (no gathers), so the loop oracle, the vectorized jnp path and the
-    tiled Pallas kernels agree bit-for-bit by construction.
+    shift (no gathers), so the loop oracle, the vectorized jnp path and its
+    tiled/sharded layouts agree by construction.
   - AD cost: ``C(x, d) = mean_c |Lp_c(x) - Rp_c(x - d)|``, defined for the
     x-extended domain ``x in [-r, W-1+r]`` that aggregation taps.
   - TAD+grad cost: ``alpha * min(AD, tau1) + (1-alpha) * min(|gLp - gRp|, tau2)``.
@@ -69,7 +68,7 @@ class StereoConfig:
     """Frozen parameter block for one stereo-matching run.
 
     Mirrors (and supersedes) the reference's compiled-in parameter struct
-    (SURVEY.md section 2.1); adds the TPU mesh / tiling configuration.
+    (SURVEY.md section 2.1); adds the device mesh / tiling configuration.
     """
 
     # ---- geometry -----------------------------------------------------------
@@ -136,27 +135,13 @@ class StereoConfig:
     # ---- memory -------------------------------------------------------------
     y_chunks: int = 1                  # >1: stream row bands sequentially per
                                        # device (bounds peak HBM; bit-exact)
-    volume_dtype: str = "float32"      # cost-volume STORAGE dtype on the
-                                       # separable d-lanes kernel path:
-                                       # "bfloat16" halves the volume's HBM
-                                       # footprint + DMA bytes (accumulation
-                                       # stays f32; costs are quantized to
-                                       # 8-bit mantissa before aggregation —
-                                       # accuracy drift pinned by tests)
     # ---- parallelism (SURVEY section 2.2; no reference analog) --------------
     # Deployment layout consumed by parallel.mesh.mesh_from_config /
-    # parallel.api.sharded_matcher: how many chips along each mesh axis and
+    # parallel.api.sharded_matcher: how many devices along each mesh axis and
     # which image axis "tile" shards ("d" = disparity-axis sharding).
-    mesh_data: int = 1                 # chips along the batch ("data") axis
-    mesh_tile: int = 1                 # chips along the spatial ("tile") axis
+    mesh_data: int = 1                 # devices along the batch ("data") axis
+    mesh_tile: int = 1                 # devices along the spatial ("tile") axis
     tile_axis: str = "y"               # what "tile" shards: "y" | "x" | "d"
-    # ---- backend selection --------------------------------------------------
-    backend: str = "auto"              # "auto" | "jnp" | "pallas"
-    kernel_layout: str = "auto"        # Pallas data layout: "auto" picks the
-                                       # disparity-in-lanes kernel for
-                                       # left-only ASW (2-3x faster; see
-                                       # ops/pallas/asw_dlanes.py), x-in-lanes
-                                       # otherwise; "xlanes"/"dlanes" force.
 
     def __post_init__(self):
         if self.cost not in ("ad", "tad_grad"):
@@ -176,43 +161,10 @@ class StereoConfig:
             raise ValueError("uniqueness_ratio must be >= 0")
         if self.window_radius < 0:
             raise ValueError("window_radius must be >= 0")
-        if self.backend not in ("auto", "jnp", "pallas"):
-            raise ValueError(f"unknown backend {self.backend!r}")
         if self.median_mode not in ("plain", "weighted"):
             raise ValueError(f"unknown median_mode {self.median_mode!r}")
-        if self.kernel_layout not in ("auto", "xlanes", "dlanes"):
-            raise ValueError(f"unknown kernel_layout {self.kernel_layout!r}")
         if self.asw_separable and self.aggregation != "asw":
             raise ValueError("asw_separable requires aggregation='asw'")
-        if self.volume_dtype not in ("float32", "bfloat16"):
-            raise ValueError(f"unknown volume_dtype {self.volume_dtype!r}")
-        if self.volume_dtype == "bfloat16":
-            # Consumed only by the separable d-lanes kernel; rejecting
-            # configs that can never route there beats a config that claims
-            # bf16 but silently runs f32 (the statically-decidable half of
-            # the guard; the platform-dependent half — TPU unavailable at
-            # run time — warns in models/pipeline._resolve_backend).
-            # Bounds mirror ops/pallas/asw_sep_dlanes.supports():
-            # D in [2, 128], adaptive tile >= 64 (r <= 32 / K <= 65).
-            if not self.asw_separable:
-                raise ValueError("volume_dtype='bfloat16' requires asw_separable")
-            # backend='jnp' is NOT rejected: an explicit jnp route with a
-            # bf16-declared config is the intentional A/B reference form
-            # (tools/tpu_smoke.py, tpu_fuzz.py compare the bf16 kernel
-            # against the f32 jnp baseline) — it gets the runtime warning
-            # in models/pipeline._resolve_backend instead.
-            routable = (
-                2 <= self.max_disparity <= 128
-                and self.window_radius <= 32
-                and self.kernel_layout != "xlanes"
-            )
-            if not routable:
-                raise ValueError(
-                    "volume_dtype='bfloat16' is consumed only by the "
-                    "separable d-lanes kernel, which this config cannot "
-                    "route to (requires max_disparity in [2, 128], "
-                    "window_radius <= 32, kernel_layout != 'xlanes')"
-                )
 
     # -- derived --------------------------------------------------------------
     @property
@@ -264,6 +216,33 @@ class StereoConfig:
 #                   hard-scene delta restricted to exact-correct pixels;
 #   gt_bad2_cost_max: hard-scene GT-accuracy cost (sep - exact bad-2.0).
 SEP_CONTRACT = {"delta_bad2_max": 0.01, "gt_bad2_cost_max": 0.003}
+
+# Hard-scene accuracy pins (``synthetic.make_hard_pair(96, 160, 24, seed)``)
+# — the single source for tests/test_accuracy_regression.py and the on-card
+# smoke (chip_smoke.py).  HARD_PIN_CFG is the base; each mode lists its
+# overrides and per-seed (bad2_max, epe_max).  Measured values, with ~1.4x
+# headroom:
+#   sym      b2 = 1.60 / 4.70 / 1.83 %,  epe = 0.19 / 0.44 / 0.27
+#   leftonly b2 = 2.41 / 6.75 / 2.64 %,  epe = 0.27 / 0.73 / 0.37
+#   box      b2 = 4.91 / 8.55 / 4.96 %,  epe = 0.51 / 0.92 / 0.57
+#   sepsym   b2 = 1.68 / 4.57 / 1.87 %,  epe = 0.18 / 0.39 / 0.28 — within
+#            noise of exact sym; the approximation must KEEP tracking exact,
+#            hence same-headroom pins.
+HARD_PIN_CFG = dict(
+    max_disparity=24, cost="tad_grad", aggregation="asw", window_radius=8,
+    lr_check=True, fill_holes=True, subpixel=True, median_filter=True,
+)
+HARD_PINS = [
+    ("sym", {}, {0: (0.023, 0.28), 1: (0.066, 0.62), 2: (0.026, 0.38)}),
+    ("leftonly", {"asw_symmetric": False},
+     {0: (0.034, 0.39), 1: (0.095, 1.03), 2: (0.037, 0.52)}),
+    ("box", {"aggregation": "box"},
+     {0: (0.069, 0.72), 1: (0.120, 1.30), 2: (0.070, 0.80)}),
+    ("sepsym", {"asw_separable": True},
+     {0: (0.024, 0.26), 1: (0.064, 0.55), 2: (0.027, 0.39)}),
+    ("seplo", {"asw_separable": True, "asw_symmetric": False},
+     {0: (0.027, 0.30), 1: (0.087, 0.93), 2: (0.032, 0.45)}),
+]
 
 PRESETS = {
     # BASELINE config 1: "Tsukuba (384x288, D=16), AD cost + fixed-window
@@ -329,11 +308,10 @@ PRESETS = {
         mesh_data=2,
         mesh_tile=4,
     ),
-    # Production speed mode (round 3): separable symmetric ASW at KITTI
-    # geometry — the bench headline.  Accuracy-contracted vs exact ASW
-    # three ways at KITTI scale (tests/test_accuracy_regression.py;
-    # bench_results/sep_vs_exact_kitti.json): 13.2 vs 2.12 pairs/s queued
-    # on one v5e chip.
+    # Separable symmetric ASW at KITTI geometry: the O(K) speed mode.
+    # Accuracy-contracted vs exact ASW three ways at KITTI scale
+    # (tests/test_accuracy_regression.py; bench_results/
+    # sep_vs_exact_kitti.json).
     "kitti_sep": StereoConfig(
         max_disparity=128,
         cost="tad_grad",
@@ -346,12 +324,9 @@ PRESETS = {
         median_filter=True,
         mesh_tile=4,
     ),
-    # Maximum-throughput production mode (round 4): separable LEFT-ONLY
-    # ASW on the banded-MXU horizontal pass — 32.9 pairs/s queued at KITTI
-    # on one v5e chip (bench_results/seplo_kitti_refresh.json), bad-2.0
-    # delta vs exact-GT 0.06% on the smooth regime.  Left-only weights are
-    # an approximation of Yoon-Kweon's symmetric weighting (SURVEY §7
-    # "decide by measurement"); accuracy pinned on the hard regime in
+    # Separable LEFT-ONLY ASW at KITTI geometry.  Left-only weights are an
+    # approximation of Yoon-Kweon's symmetric weighting (SURVEY §7 "decide
+    # by measurement"); accuracy pinned on the hard regime in
     # tests/test_accuracy_regression.py ("seplo" rows).
     "kitti_seplo": StereoConfig(
         max_disparity=128,
@@ -371,8 +346,7 @@ PRESETS = {
     # for ambiguous/low-texture content where local windows (ASW incl.)
     # saturate: kitti-geometry hard regime DENSE bad-2.0 1.4%/0.5%
     # (2 seeds) vs local ASW dense 11% and cv2 SGBM 4.3% at 0.88
-    # coverage.  jnp-only (scans are global: no spatial tiling/chunking,
-    # documented); runs everywhere incl. TPU via XLA scan.
+    # coverage.  Scans are global: no spatial tiling/chunking (documented).
     "kitti_sgm": StereoConfig(
         max_disparity=128,
         cost="tad_grad",

@@ -3,8 +3,9 @@
 This is the in-repo golden: a direct, loop-level transcription of the pinned
 numeric spec in ``config.py`` — the same role the reference's C++ inner loops
 play (SURVEY.md section 3.1/3.2), written for *obvious correctness*, not
-speed.  Use only on small images/crops; every vectorized JAX stage and every
-Pallas kernel must match this bit-for-bit in f32 (tests/test_pipeline.py).
+speed.  Use only on small images/crops; every vectorized JAX stage must
+match it to f32 tolerance (tests/test_oracle_parity.py,
+tests/test_jnp_vs_oracle_*.py).
 
 The ASW aggregation below is the 5-deep loop (y, x, d, wy, wx) of
 Yoon-Kweon TPAMI 2006 section 3 with symmetric two-view weights:
@@ -107,7 +108,7 @@ def asw_weight(
 
     Color term uses the (border-clamped) tap pixel; the spatial term uses the
     *nominal* window offset (wy, wx) — pinned so that border behavior equals
-    edge-padding + fixed per-offset spatial weight in the vectorized kernels.
+    edge-padding + fixed per-offset spatial weight in the vectorized path.
     """
     dc = float(np.sqrt(((lab[y, x] - lab[yy, xx]) ** 2).sum()))
     dg = float(np.sqrt(wy * wy + wx * wx))
@@ -384,22 +385,35 @@ def aggregate_sgm(vol: np.ndarray, cfg: StereoConfig) -> np.ndarray:
 # Full pipeline
 # ---------------------------------------------------------------------------
 
-def match_pair(left: np.ndarray, right: np.ndarray, cfg: StereoConfig) -> np.ndarray:
-    """End-to-end oracle: images -> float32 disparity map (SURVEY section 3.1)."""
+def aggregated_volume(
+    left: np.ndarray, right: np.ndarray, cfg: StereoConfig
+) -> np.ndarray:
+    """(H, W, D) aggregated cost volume per the configured aggregation."""
     if cfg.aggregation == "box":
-        vol = aggregate_box(
+        return aggregate_box(
             cost_volume_ext(left, right, cfg, cfg.window_radius), cfg
         )
-    elif cfg.aggregation == "sgm":
-        vol = aggregate_sgm(cost_volume(left, right, cfg), cfg)
-    elif cfg.aggregation == "asw":
+    if cfg.aggregation == "sgm":
+        return aggregate_sgm(cost_volume(left, right, cfg), cfg)
+    if cfg.aggregation == "asw":
         agg = aggregate_asw_separable if cfg.asw_separable else aggregate_asw
-        vol = agg(
+        return agg(
             cost_volume_ext(left, right, cfg, cfg.window_radius),
             left, right, cfg,
         )
-    else:
-        vol = cost_volume(left, right, cfg)
+    return cost_volume(left, right, cfg)
+
+
+def match_pair(left: np.ndarray, right: np.ndarray, cfg: StereoConfig) -> np.ndarray:
+    """End-to-end oracle: images -> float32 disparity map (SURVEY section 3.1)."""
+    return disparity_from_volume(aggregated_volume(left, right, cfg), left, cfg)
+
+
+def disparity_from_volume(
+    vol: np.ndarray, left: np.ndarray, cfg: StereoConfig
+) -> np.ndarray:
+    """WTA + subpixel + LR/uniqueness gates + fill + median from an
+    aggregated volume (``left`` guides the weighted median)."""
     disp_i = wta(vol)
     disp = subpixel(vol, disp_i) if cfg.subpixel else disp_i.astype(np.float32)
     valid = None

@@ -4,17 +4,11 @@
 images -> cost (fused into aggregation) -> WTA -> subpixel -> LR check ->
 fill -> median -> float32 disparity map.  It composes the stage ops from
 ``aswstereomatch_tpu.ops`` and mirrors the NumPy oracle
-(models/oracle_numpy.py) stage for stage.
+(models/oracle_numpy.py) stage for stage.  Every stage is plain
+``jax.numpy``/``lax`` compiled by XLA, in float32 throughout.
 
-Backends:
-  - "jnp":    pure jax.numpy stages (this file) — correct everywhere, the
-              oracle for kernel work; fine on CPU/TPU.
-  - "pallas": fused Pallas TPU kernel for cost+ASW+WTA (ops/pallas) with the
-              jnp post-processing stages on top.
-  - "auto":   pallas when the config and platform support it, else jnp.
-
-``StereoMatcher`` wraps a config with cached jitted single/batch entry points
-— the "model" object of this framework; the five BASELINE presets in
+``StereoMatcher`` wraps a config with jitted single/batch/confidence entry
+points — the "model" object of this framework; the BASELINE presets in
 config.PRESETS are its model zoo.
 """
 
@@ -43,23 +37,34 @@ def aggregated_volume(
     return cost.cost_volume(left, right, cfg)
 
 
-def disp_pre_from_volume(vol: jnp.ndarray, cfg: StereoConfig) -> jnp.ndarray:
-    """WTA + subpixel + LR/uniqueness gates + fill (row-local; no median)."""
-    disp_i = wta.wta(vol)
-    disp = (
-        wta.subpixel(vol, disp_i) if cfg.subpixel else disp_i.astype(jnp.float32)
-    )
+def disp_pre_from_winners(outs: dict, cfg: StereoConfig) -> jnp.ndarray:
+    """Subpixel + LR/uniqueness gates + fill (row-local; no median) from the
+    per-pixel WTA winners.
+
+    ``outs`` holds (H, W) planes: ``bestd`` (int argmin), ``bestc``/``cm``/
+    ``cp`` (the parabola triple C[d*], C[d*-1], C[d*+1]), ``rbestd`` (the
+    right view's argmin, when ``cfg.lr_check``) and ``ubest`` (the far
+    second-best cost, when ``cfg.uniqueness_ratio > 0``).  The unsharded
+    path builds them from the whole volume (``winners_from_volume``); the
+    x-tiled and d-sharded layouts assemble the same planes from per-shard
+    partial winners, so every layout shares this one epilogue.
+    """
+    disp_i = outs["bestd"]
+    if cfg.subpixel:
+        disp = wta.subpixel_from_triple(
+            disp_i, outs["bestc"], outs["cm"], outs["cp"], cfg.max_disparity
+        )
+    else:
+        disp = disp_i.astype(jnp.float32)
     valid = None
     if cfg.lr_check:
-        vol_r = postprocess.right_volume(vol)
-        disp_r_i = wta.wta(vol_r)
         valid = postprocess.lr_check(
-            disp_i.astype(jnp.float32), disp_r_i.astype(jnp.float32), cfg
+            disp_i.astype(jnp.float32), outs["rbestd"].astype(jnp.float32), cfg
         )
     if cfg.uniqueness_ratio > 0:
-        bestc = jnp.take_along_axis(vol, disp_i[..., None], axis=-1)[..., 0]
-        second = wta.second_best_excl_neighbors(vol, disp_i)
-        uv = wta.uniqueness_valid(bestc, second, cfg.uniqueness_ratio)
+        uv = wta.uniqueness_valid(
+            outs["bestc"], outs["ubest"], cfg.uniqueness_ratio
+        )
         valid = uv if valid is None else valid & uv
     if valid is not None:
         if cfg.fill_holes:
@@ -67,6 +72,27 @@ def disp_pre_from_volume(vol: jnp.ndarray, cfg: StereoConfig) -> jnp.ndarray:
         else:
             disp = jnp.where(valid, disp, -1.0).astype(jnp.float32)
     return disp.astype(jnp.float32)
+
+
+def winners_from_volume(
+    vol: jnp.ndarray, cfg: StereoConfig, always: bool = False
+) -> dict:
+    """The ``disp_pre_from_winners`` operands from a whole (H, W, D) volume.
+
+    The right-view argmin and the far second-best are built only when the
+    config consumes them, unless ``always`` (the confidence surface).
+    """
+    outs = wta.wta_with_triple(vol)
+    if cfg.lr_check or always:
+        outs["rbestd"] = wta.wta(postprocess.right_volume(vol))
+    if cfg.uniqueness_ratio > 0 or always:
+        outs["ubest"] = wta.second_best_excl_neighbors(vol, outs["bestd"])
+    return outs
+
+
+def disp_pre_from_volume(vol: jnp.ndarray, cfg: StereoConfig) -> jnp.ndarray:
+    """WTA + subpixel + LR/uniqueness gates + fill (row-local; no median)."""
+    return disp_pre_from_winners(winners_from_volume(vol, cfg), cfg)
 
 
 def _guide_lab(left: jnp.ndarray, cfg: StereoConfig):
@@ -104,19 +130,10 @@ def tile_disparity(
     by *global-row-clamped* index so true-boundary rows reproduce the untiled
     edge clamp exactly — the tiled==untiled bit-exactness hinges on this.
 
-    Routes through the fused Pallas kernel when the backend resolves to it
-    (per-pixel results are position-independent, so pallas-tiled ==
-    pallas-untiled stays bit-exact; only rows within the trimmed halo see
-    the tile edge).
-
     left_ext/right_ext: (halo + rows + halo, W[, 3]); returns (rows, W).
     """
-    if _resolve_backend(cfg, left_ext.shape) == "pallas":
-        outs = _kernel_wta(left_ext, right_ext, cfg)
-        disp = _disp_pre_from_wta(outs, cfg)
-    else:
-        vol = aggregated_volume(left_ext, right_ext, cfg)
-        disp = disp_pre_from_volume(vol, cfg)
+    vol = aggregated_volume(left_ext, right_ext, cfg)
+    disp = disp_pre_from_volume(vol, cfg)
     if not cfg.median_filter:
         return disp[halo : halo + rows]
     g = start - 1 + jnp.arange(rows + 2)  # global rows: owned +-1
@@ -134,8 +151,8 @@ def match_pair_chunked(
     sequentially (lax.map), bounding peak HBM by ~1/y_chunks.
 
     Bit-identical to the unchunked pipeline (same machinery as the sharded
-    tiles); this is how KITTI-scale volumes fit one chip on the non-Pallas
-    path, where the (H, W, w^2) weight planes would otherwise exceed HBM.
+    tiles); it bounds the (H, W, w^2) exact-ASW weight planes when a frame's
+    would otherwise exceed device memory.
     """
     if cfg.aggregation == "sgm":
         raise ValueError(
@@ -166,124 +183,10 @@ def match_pair_chunked(
     return bands.reshape(n * rows, w)[:h]
 
 
-def _resolve_backend(cfg: StereoConfig, shape=None) -> str:
-    if cfg.backend != "auto":
-        return cfg.backend
-    from ..ops.pallas import asw_kernel, asw_sep_dlanes  # optional path
-
-    if cfg.asw_separable:
-        # Hardware-validated (separable_ab.json): auto routes supported
-        # separable geometries onto the d-lanes kernel; jnp otherwise.
-        supported = asw_sep_dlanes.routed(cfg)
-    else:
-        supported = asw_kernel.supports(cfg)
-    if not (supported and jax.default_backend() == "tpu"):
-        if cfg.volume_dtype == "bfloat16":
-            # bf16 volume storage exists only inside the separable d-lanes
-            # kernel; config.__post_init__ rejects statically-unroutable
-            # combinations, so landing here means the platform (or runtime
-            # routing) fell back — the run is f32 despite the declared
-            # dtype, which records/config hashes would otherwise misstate.
-            import warnings
-
-            warnings.warn(
-                "volume_dtype='bfloat16' config resolved to the jnp "
-                "backend (no TPU / unsupported geometry): the run stores "
-                "the volume in float32",
-                stacklevel=3,
-            )
-        return "jnp"
-    if cfg.aggregation == "box" and shape is not None:
-        # The fused box kernel wins 12x at KITTI scale but loses to the
-        # XLA reduce_window path on tiny problems (per-tile dispatch /
-        # patch overhead); route by window work.
-        h, w = shape[:2]
-        work = h * w * cfg.max_disparity * cfg.window_size**2
-        if work < 5e8:
-            return "jnp"
-    return "pallas"
-
-
-def _kernel_wta(left: jnp.ndarray, right: jnp.ndarray, cfg: StereoConfig) -> dict:
-    """Fused-kernel WTA outputs, picking the data layout per config: the
-    disparity-in-lanes kernel for left-only ASW (2x; ops/pallas/asw_dlanes),
-    x-in-lanes otherwise."""
-    from ..ops.pallas import asw_dlanes, asw_kernel, asw_sep_dlanes
-    from ..ops.pallas import asw_sym_dlanes
-
-    if cfg.asw_separable:
-        # Reached by auto routing (every supported separable geometry on
-        # TPU), the explicit dlanes pin, or a forced backend='pallas'.
-        # The exact kernels must never silently compute the separable
-        # config's window, so unsupported geometries — and an explicit
-        # xlanes pin, which names a kernel that doesn't exist for this
-        # mode — raise here.
-        if cfg.kernel_layout != "xlanes" and asw_sep_dlanes.supports(cfg):
-            return asw_sep_dlanes.wta_outputs(left, right, cfg)
-        raise ValueError(
-            "separable ASW has no xlanes kernel and requires "
-            "max_disparity in [2, 128] and window_size <= 65 "
-            "(kernel_layout 'auto'/'dlanes'); use backend='auto'/'jnp'"
-        )
-    if asw_sym_dlanes.routed(cfg):
-        return asw_sym_dlanes.wta_outputs(left, right, cfg)
-    if asw_dlanes.routed(cfg):
-        return asw_dlanes.wta_outputs(left, right, cfg)
-    return asw_kernel.wta_outputs(left, right, cfg)
-
-
-def _disp_pre_from_wta(outs: dict, cfg: StereoConfig) -> jnp.ndarray:
-    """Subpixel + LR + fill from the fused kernel's online-WTA outputs
-    (everything row-local; no median) — the WTA-output analog of
-    ``disp_pre_from_volume``."""
-    disp_i = outs["bestd"]
-    if cfg.subpixel:
-        disp = wta.subpixel_from_triple(
-            disp_i, outs["bestc"], outs["cm"], outs["cp"], cfg.max_disparity
-        )
-    else:
-        disp = disp_i.astype(jnp.float32)
-    valid = None
-    if cfg.lr_check:
-        valid = postprocess.lr_check(
-            disp_i.astype(jnp.float32), outs["rbestd"].astype(jnp.float32), cfg
-        )
-    if cfg.uniqueness_ratio > 0:
-        if "ubest" not in outs:
-            raise ValueError(
-                "this kernel path does not export the second-best cost "
-                "required by uniqueness_ratio; use backend='jnp'"
-            )
-        uv = wta.uniqueness_valid(
-            outs["bestc"], outs["ubest"], cfg.uniqueness_ratio
-        )
-        valid = uv if valid is None else valid & uv
-    if valid is not None:
-        if cfg.fill_holes:
-            disp = postprocess.fill_holes(disp, valid)
-        else:
-            disp = jnp.where(valid, disp, -1.0).astype(jnp.float32)
-    return disp.astype(jnp.float32)
-
-
-def _postprocess_from_wta(
-    outs: dict, cfg: StereoConfig, left: jnp.ndarray
-) -> jnp.ndarray:
-    """Post-process the fused kernel's online-WTA outputs (no volume)."""
-    disp = _disp_pre_from_wta(outs, cfg)
-    if cfg.median_filter:
-        disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
-    return disp.astype(jnp.float32)
-
-
 def match_pair(
     left: jnp.ndarray, right: jnp.ndarray, cfg: StereoConfig
 ) -> jnp.ndarray:
     """Match one rectified pair -> float32 (H, W) disparity.  Jit-friendly."""
-    backend = _resolve_backend(cfg, left.shape)
-    if backend == "pallas":
-        outs = _kernel_wta(left, right, cfg)
-        return _postprocess_from_wta(outs, cfg, left)
     if cfg.y_chunks > 1:
         return match_pair_chunked(left, right, cfg)
     vol = aggregated_volume(left, right, cfg)
@@ -312,34 +215,21 @@ def match_pair_with_confidence(
     This is the selectable-coverage product surface: fetch once, choose
     the operating point downstream.  Jit-friendly.
     """
-    backend = _resolve_backend(cfg, left.shape)
-    if backend == "pallas":
-        outs = _kernel_wta(left, right, cfg)
-        disp = _postprocess_from_wta(outs, cfg, left)
-        bestc, second = outs["bestc"], outs["ubest"]
-        disp_i = outs["bestd"]
-        rbest = outs["rbestd"].astype(jnp.float32)
-    else:
-        if cfg.y_chunks > 1:
-            # The chunked streamer returns only the disparity bands; the
-            # confidence operands would need their own band plumbing.
-            # Reject rather than silently materializing the full volume a
-            # y_chunks config exists to avoid (the production confidence
-            # users — kernel-backed ASW and SGM — never chunk).
-            raise ValueError(
-                "match_pair_with_confidence does not support y_chunks > 1 "
-                "on the jnp path; use y_chunks=1 (or a kernel-backed "
-                "config)"
-            )
-        vol = aggregated_volume(left, right, cfg)
-        disp = _postprocess_from_volume(vol, cfg, left)
-        disp_i = wta.wta(vol)
-        bestc = jnp.take_along_axis(vol, disp_i[..., None], axis=-1)[..., 0]
-        second = wta.second_best_excl_neighbors(vol, disp_i)
-        rbest = (
-            wta.wta(postprocess.right_volume(vol)).astype(jnp.float32)
-            if cfg.lr_check else None
+    if cfg.y_chunks > 1:
+        # The chunked streamer returns only the disparity bands; the
+        # confidence operands would need their own band plumbing.  Reject
+        # rather than silently materializing the full volume a y_chunks
+        # config exists to avoid.
+        raise ValueError(
+            "match_pair_with_confidence does not support y_chunks > 1; "
+            "use y_chunks=1"
         )
+    vol = aggregated_volume(left, right, cfg)
+    outs = winners_from_volume(vol, cfg, always=True)
+    disp = disp_pre_from_winners(outs, cfg)
+    if cfg.median_filter:
+        disp = postprocess.median_filter(disp, cfg, _guide_lab(left, cfg))
+    bestc, second, disp_i = outs["bestc"], outs["ubest"], outs["bestd"]
     # Margin in the exact form the in-graph gate tests:
     # second*100 >= best*(100+r)  <=>  (second/best - 1)*100 >= r for
     # best > 0; at best == 0 the gate accepts for EVERY ratio (second >= 0
@@ -352,102 +242,49 @@ def match_pair_with_confidence(
         jnp.float32(1e6),
     )
     if cfg.lr_check:
-        lr_valid = postprocess.lr_check(disp_i.astype(jnp.float32), rbest, cfg)
+        lr_valid = postprocess.lr_check(
+            disp_i.astype(jnp.float32), outs["rbestd"].astype(jnp.float32), cfg
+        )
     else:
         lr_valid = jnp.ones(disp_i.shape, bool)
     return disp, uniq_pct, lr_valid
 
 
-def dlanes_routed(cfg: StereoConfig, pair_shape) -> bool:
-    """True when this config resolves to a d-lanes Pallas kernel.
-
-    Callers batching pairs must use ``lax.map`` instead of ``jax.vmap``
-    then: Mosaic cannot batch-block those kernels' ANY-memory-space HBM
-    cost volume (a hardware-only lowering error; interpret mode accepts
-    it).  A single pair already saturates the chip on these kernels, so
-    the sequential form loses no throughput (measured B=4 at KITTI:
-    symmetric vmap 2.05 pairs/s aggregate vs 2.08 queued single-pair;
-    left-only lax.map 11.0 vs 11.5)."""
-    if _resolve_backend(cfg, pair_shape) != "pallas":
-        return False
-    from ..ops.pallas import asw_dlanes, asw_sep_dlanes, asw_sym_dlanes
-
-    return (
-        asw_sep_dlanes.routed(cfg)
-        or asw_dlanes.routed(cfg)
-        or asw_sym_dlanes.routed(cfg)
-    )
-
-
 def match_batch(left: jnp.ndarray, right: jnp.ndarray, cfg: StereoConfig) -> jnp.ndarray:
-    """Batched throughput mode: (B, H, W, 3) x2 -> (B, H, W).
-
-    vmap for the x-lanes/jnp paths; `lax.map` (sequential pairs inside one
-    jit) when the config resolves to a d-lanes kernel — see dlanes_routed.
-    """
-    if dlanes_routed(cfg, left.shape[1:]):
-        return lax.map(
-            lambda lr: match_pair(lr[0], lr[1], cfg), (left, right)
-        )
+    """Batched throughput mode: (B, H, W, 3) x2 -> (B, H, W), by vmap."""
     return jax.vmap(lambda l, r: match_pair(l, r, cfg))(left, right)
 
 
+def _widened(fn, cfg: StereoConfig):
+    """Jit ``fn(left, right, cfg)`` with a device-side float32 widen, so
+    uint8 wire inputs (lossless for 8-bit images, 4x fewer host-to-device
+    bytes) and float32 inputs share one entry point."""
+    return jax.jit(
+        lambda l, r: fn(l.astype(jnp.float32), r.astype(jnp.float32), cfg)
+    )
+
+
 class StereoMatcher:
-    """A configured matcher with cached compiled entry points.
+    """A configured matcher with jitted entry points.
 
     >>> m = StereoMatcher.from_preset("middlebury_asw")
-    >>> disp = m(left, right)             # single pair
-    >>> disps = m.batch(lefts, rights)    # batched
+    >>> disp = m(left, right)                  # single pair
+    >>> disps = m.batch(lefts, rights)         # batched
+    >>> disp, uniq_pct, lr_valid = m.with_confidence(left, right)
 
-    On TPU, entry points ride the on-disk AOT executable cache
-    (utils/aotcache.py) by default — the same cache bench/serve/sweep use —
-    so a fresh process's first call warm-starts in well under a second on a
-    machine that has compiled this (config, shape, dtype) before, instead
-    of paying the 1-4 min Mosaic compile.  ``use_aot_cache=False`` restores
-    plain ``jax.jit``.  Off-TPU both paths are plain jit (fast compiles; no
-    Mosaic).  Inputs may be uint8 (widened to float32 on device, lossless)
-    or float32; executables are specialized per input shape/dtype.
+    Inputs may be uint8 (widened to float32 on device, lossless) or
+    float32; jit specializes per input shape/dtype.  Compiled programs land
+    in JAX's persistent compilation cache when an entry point has enabled
+    it (utils/compile_cache.py).  ``jit_pair``/``jit_batch``/
+    ``jit_confidence`` are the unvalidated jitted entries, for callers that
+    compile ahead of time (``.lower(l, r).compile()``).
     """
 
-    def __init__(self, cfg: StereoConfig, *, use_aot_cache: bool = True):
+    def __init__(self, cfg: StereoConfig):
         self.cfg = cfg
-        self.use_aot_cache = use_aot_cache
-        # AOT executables are shape/dtype-specialized: key per signature.
-        # Off-TPU (or with the cache disabled) entries are plain jits that
-        # tolerate retraces, so one entry serves every signature.
-        self._compiled: dict = {}
-        self.last_compile_source: str | None = None
-        if not use_aot_cache:
-            # Same device-side f32 widening as the cached entries, so the
-            # two paths accept identical inputs (uint8 wire or float32).
-            self._match = jax.jit(
-                lambda l, r: match_pair(
-                    l.astype(jnp.float32), r.astype(jnp.float32), cfg
-                )
-            )
-            self._match_batch = jax.jit(
-                lambda l, r: match_batch(
-                    l.astype(jnp.float32), r.astype(jnp.float32), cfg
-                )
-            )
-
-    def _cached(self, kind: str, left, right):
-        # Both dtypes key the executable: AOT programs are signature-bound,
-        # and a mixed-dtype call (u8 left, f32 right) must not collide with
-        # the all-f32 entry.
-        key = (kind, left.shape, str(left.dtype), str(right.dtype))
-        fn = self._compiled.get(key)
-        if fn is None:
-            from ..utils import aotcache
-
-            get = (
-                aotcache.cached_match_batch
-                if kind == "batch"
-                else aotcache.cached_match_pair
-            )
-            fn, self.last_compile_source = get(self.cfg, left, right)
-            self._compiled[key] = fn
-        return fn
+        self.jit_pair = _widened(match_pair, cfg)
+        self.jit_batch = _widened(match_batch, cfg)
+        self.jit_confidence = _widened(match_pair_with_confidence, cfg)
 
     @classmethod
     def from_preset(cls, name: str, **overrides) -> "StereoMatcher":
@@ -472,13 +309,15 @@ class StereoMatcher:
     def __call__(self, left, right):
         left, right = jnp.asarray(left), jnp.asarray(right)
         self._validate(left, right, batched=False)
-        if not self.use_aot_cache:
-            return self._match(left, right)
-        return self._cached("pair", left, right)(left, right)
+        return self.jit_pair(left, right)
 
     def batch(self, lefts, rights):
         lefts, rights = jnp.asarray(lefts), jnp.asarray(rights)
         self._validate(lefts, rights, batched=True)
-        if not self.use_aot_cache:
-            return self._match_batch(lefts, rights)
-        return self._cached("batch", lefts, rights)(lefts, rights)
+        return self.jit_batch(lefts, rights)
+
+    def with_confidence(self, left, right):
+        """``(disp, uniq_pct, lr_valid)`` — see match_pair_with_confidence."""
+        left, right = jnp.asarray(left), jnp.asarray(right)
+        self._validate(left, right, batched=False)
+        return self.jit_confidence(left, right)

@@ -17,10 +17,10 @@ both under the pinned virtual padded-plane border semantics (config.py):
     ``lax.scan`` over disparities.  Raw cost is computed per-plane inside the
     scan, so no unaggregated H*W*D volume is materialized.
 
-This is the readable/verifiable implementation (it materializes (H, W, K^2)
-weight planes and the aggregated output volume in HBM); the fused Pallas
-kernel in ``ops/pallas`` shares its exact semantics and keeps everything in
-VMEM.
+This is the production implementation, compiled by XLA: it materializes the
+(H, W, K^2) weight planes and the aggregated output volume in device memory.
+A fused kernel that keeps the per-d products on chip must reproduce these
+semantics (the NumPy oracle pins them).
 """
 
 from __future__ import annotations
@@ -324,9 +324,9 @@ def aggregate_asw(
 # Semi-global aggregation (aggregation="sgm") — a beyond-reference extension
 # (round 5; recurrence pinned in config.py).  The reference implements the
 # LOCAL adaptive-support-weight method; the round-4 hard-regime measurement
-# (bench_results/opencv_compare_hard.json) showed semi-global smoothness
-# propagation is the stronger approach on ambiguous content at high
-# coverage, so this closes that measured frontier.  TPU shape: each of the
+# showed semi-global smoothness propagation is the stronger approach on
+# ambiguous content at high coverage, so this closes that measured
+# frontier.  Shape: each of the
 # four path directions is one lax.scan along a spatial axis carrying a
 # (lines, D) plane — per step a handful of vectorized (lines, D) mins/adds,
 # which XLA fuses; no gathers, no data-dependent control flow.
@@ -337,9 +337,9 @@ def _sgm_scan(vol: jnp.ndarray, p1: float, p2: float) -> jnp.ndarray:
 
     Carries the previous step's (M, D) cost plane; the d+-1 neighbor terms
     are static pad-shifts (out-of-range -> +inf per the pinned spec).  The
-    per-step vector work is tiny, so the pass is sequential-overhead-bound
-    on TPU; ``unroll=8`` amortizes the while-loop trip cost (measured
-    below in aggregate_sgm) and is value-neutral (same op order per step).
+    per-step vector work is tiny, so the pass is bound by per-step
+    overhead; ``unroll=8`` amortizes the while-loop trip cost and is
+    value-neutral (same op order per step).
     """
     p1 = jnp.float32(p1)
     p2 = jnp.float32(p2)
@@ -366,7 +366,7 @@ def aggregate_sgm(vol: jnp.ndarray, cfg: StereoConfig) -> jnp.ndarray:
     S = L(left-to-right) + L(right-to-left) + L(top-down) + L(bottom-up),
     summed in that pinned order (models/oracle_numpy.py is the loop form).
 
-    TPU shape: the two opposed directions of each axis are PACKED into one
+    The two opposed directions of each axis are PACKED into one
     scan (a reversed copy concatenated along the carried-plane axis), so
     the whole aggregation is two sequential scans (W steps + H steps)
     instead of four — rows of the carried plane never interact in the

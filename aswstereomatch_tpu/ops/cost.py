@@ -13,8 +13,8 @@ Entry points:
   - ``cost_volume(left, right, cfg, x_extend=0)``: materialized volume.
 
 All accesses are static/dynamic *slices* of the padded planes — no gathers —
-so XLA lowers everything to fused VPU code and the Pallas kernel can share
-the exact semantics with pure shifts.
+so XLA lowers everything to fused elementwise code, and any tiled layout
+shares the exact semantics with pure shifts.
 """
 
 from __future__ import annotations

@@ -22,10 +22,10 @@ def right_volume(vol: jnp.ndarray) -> jnp.ndarray:
     """C_R(x', d) = C_L(x' + d, d) by volume reuse; candidates with
     x' + d > W - 1 have no left pixel and are excluded (+inf).  vol: (H, W, D).
 
-    Gather-free log-shear: TPU gathers serialize (the round-3 LR/median
-    pathologies; measured again here on the SGM path: the take_along_axis
-    form cost 840 ms at KITTI scale vs ~30 ms for log2(D) whole-volume
-    rolls).  Each output stays in range of the inf-padded plane
+    Gather-free log-shear: log2(D) whole-volume roll+select passes in
+    place of a take_along_axis gather (whether the gather form is faster
+    on the GPU is an open ROADMAP item).  Each output stays in range of
+    the inf-padded plane
     (x + d <= W + D - 2), so no roll wrap ever reaches a kept position —
     element-identical to the direct gather.
     """
@@ -49,10 +49,9 @@ def lr_check(
     NumPy oracle — WTA only produces [0, D), and a value outside the
     searched range has no matching candidate).
 
-    The gather ``dispR[x - round(dispL)]`` is data-dependent along lanes,
-    which XLA:TPU serializes (measured 14.7 ms of LR+fill epilogue at KITTI
-    — tools/profile_stages.py round 3).  With ``round(dispL)`` bounded by
-    D, the gather is instead a D-step select over statically shifted
+    The gather ``dispR[x - round(dispL)]`` is data-dependent along x.
+    With ``round(dispL)`` bounded by D, it is written as a D-step select
+    over statically shifted
     planes (exact: pure selection, no arithmetic change), compiled as one
     fori over a (H, W+D) padded plane."""
     h, w = disp_l.shape
@@ -79,9 +78,8 @@ def fill_holes(disp: jnp.ndarray, valid: jnp.ndarray) -> jnp.ndarray:
     Per-row; one-sided at row edges; rows with no valid pixel fill with 0.
 
     Formulated as log-depth associative "last valid VALUE" scans instead
-    of cummax-of-index + take_along_axis: the index gathers are
-    data-dependent along lanes, which XLA:TPU serializes (round-3 stage
-    ladder).  Pure selection — values are bit-identical to the gather
+    of cummax-of-index + take_along_axis (no data-dependent gathers).
+    Pure selection — values are bit-identical to the gather
     form and the NumPy oracle."""
     dispf = disp.astype(jnp.float32)
     big = jnp.float32(jnp.inf)
@@ -128,9 +126,8 @@ def weighted_median3(
     refinement of the plain median (reference capability: SURVEY.md section
     2.1 "Median/weighted-median filter").
 
-    Sort-free formulation: argsort + take_along_axis over the 9-tap axis
-    cost ~109 ms/pair at KITTI on TPU (round-3 stage ladder — lane-gather
-    serialization again).  Instead each tap's cumulative-in-sorted-order
+    Sort-free formulation (no argsort + take_along_axis gather over the
+    9-tap axis): each tap's cumulative-in-sorted-order
     weight is computed directly as a masked sum — cum_i = sum_j w_j over
     {(v_j, j) <= (v_i, i) lexicographically} — and the answer is the
     smallest qualifying value.  Pure selection over the same weights

@@ -1,7 +1,7 @@
 """Preprocess stage (SURVEY.md section 1, L1) in JAX.
 
 Grayscale + x-gradient + CIELab conversion, all static-shape, fusible jnp —
-the TPU-native replacement for the reference's cv::cvtColor / cv::Sobel calls.
+the JAX replacement for the reference's cv::cvtColor / cv::Sobel calls.
 Conversions come from utils.colorspace (single source shared with the NumPy
 oracle).
 """

@@ -18,8 +18,8 @@ def wta(vol: jnp.ndarray) -> jnp.ndarray:
 def wta_with_triple(vol: jnp.ndarray) -> dict:
     """Argmin plus the (C[d*-1], C[d*], C[d*+1]) parabola triple.
 
-    The volume-path equivalent of the fused kernel's online outputs; cm/cp at
-    the d-range edges are clamped reads (masked later by the subpixel guard).
+    cm/cp at the d-range edges are clamped reads (masked later by the
+    subpixel guard).
     """
     D = vol.shape[-1]
     d = jnp.argmin(vol, axis=-1).astype(jnp.int32)
@@ -54,9 +54,9 @@ def subpixel_from_triple(
     cp: jnp.ndarray,
     max_disparity: int,
 ) -> jnp.ndarray:
-    """Parabola refinement from an online-tracked (C[d-1], C[d], C[d+1])
-    triple (the fused Pallas kernel's output form) — same formula and guards
-    as ``subpixel``."""
+    """Parabola refinement from a (C[d-1], C[d], C[d+1]) winner triple (the
+    form the sharded layouts combine) — same formula and guards as
+    ``subpixel``."""
     d = disp.astype(jnp.int32)
     denom = cp - 2.0 * c0 + cm
     off = jnp.clip((cp - cm) / (2.0 * denom), -0.5, 0.5)
@@ -70,8 +70,7 @@ def second_best_excl_neighbors(vol: jnp.ndarray, disp: jnp.ndarray) -> jnp.ndarr
     The uniqueness-confidence operand (the knob cv2.StereoBM/SGBM ship as
     ``uniquenessRatio``): vol (H, W, D), disp the integer WTA argmin.
     Returns (H, W); +inf where every candidate lies within the excluded
-    window (D <= 3) — the gate then accepts, matching the kernels' BIG
-    sentinel semantics.
+    window (D <= 3) — the gate then accepts.
     """
     d_idx = jnp.arange(vol.shape[-1])
     far = jnp.abs(d_idx[None, None, :] - disp[..., None]) > 1
@@ -85,6 +84,6 @@ def uniqueness_valid(
     second-best by ``ratio`` percent — ``second*100 >= best*(100+ratio)``.
 
     Costs are non-negative (truncated ADs); an unbounded ``second`` (no far
-    candidate / the kernels' BIG sentinel) always accepts.
+    candidate) always accepts.
     """
     return second * 100.0 >= best * (100.0 + ratio)

@@ -1,7 +1,7 @@
 """High-level sharded entry point driven by the config's declared layout.
 
 ``sharded_match_fn(cfg)`` turns a StereoConfig whose mesh fields declare a
-multi-chip layout (mesh_data x mesh_tile, tile_axis in {y, x, d}) into the
+multi-device layout (mesh_data x mesh_tile, tile_axis in {y, x, d}) into the
 matching callable over the corresponding function from tiling/dshard — the
 config-driven front door the CLI and deployment code use, so the layout
 lives in one place (the config hash covers it).
@@ -22,8 +22,8 @@ from . import dshard, mesh as mesh_lib, tiling
 
 def layout_fits(cfg: StereoConfig) -> bool:
     """True iff cfg declares a >1-device mesh that fits the visible devices
-    (public: callers routing between AOT-cached single-device executables
-    and sharded jit need exactly this predicate)."""
+    (public: callers routing between the single-device matcher and the
+    sharded jit need exactly this predicate)."""
     need = cfg.mesh_data * cfg.mesh_tile
     if need <= 1:
         return False

@@ -1,19 +1,19 @@
 """Multi-host runtime (SURVEY.md sections 2.2 / 5 "distributed backend").
 
-The reference has no communication layer at all; the TPU-native equivalent
-of an MPI/NCCL backend is ``jax.distributed.initialize`` + GSPMD over a
-global mesh — no custom transport:
+The reference has no communication layer at all; the JAX equivalent of an
+MPI/NCCL backend is ``jax.distributed.initialize`` + GSPMD over a global
+mesh — no custom transport:
 
-  - intra-slice traffic (halo exchange, D-shard combines) rides ICI via the
+  - intra-host traffic (halo exchange, D-shard combines) uses the
     collectives in parallel/tiling.py and parallel/dshard.py;
   - cross-host traffic is only the batch ("data") axis — embarrassingly
-    parallel pair dispatch over DCN, plus result gathering.
+    parallel pair dispatch, plus result gathering.
 
-``initialize()`` wires up the process group (env-var driven on TPU pods,
-explicit args for loopback CPU testing); ``global_mesh`` builds the
-(data, tile) mesh over all global devices with hosts mapped to the data
-axis (so "tile" neighbors stay intra-host/ICI whenever
-tile <= local_device_count); ``run_batch_distributed`` shards a batch of
+``initialize()`` wires up the process group (coordinator address, process
+count and id passed explicitly); ``global_mesh`` builds the (data, tile)
+mesh over all global devices with hosts mapped to the data axis (so "tile"
+neighbors stay intra-host whenever tile <= local_device_count);
+``run_batch_distributed`` shards a batch of
 pairs across it and returns the host-local result shards.
 
 Elastic recovery (SURVEY section 5): stereo pairs are stateless, so failure
@@ -42,9 +42,10 @@ def initialize(
 ) -> None:
     """Bring up the multi-host runtime.
 
-    On TPU pods all arguments come from the environment
-    (jax.distributed.initialize()); explicit args support loopback
-    multi-process CPU tests (tests/test_distributed.py).
+    Pass ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id``: nothing on a plain GPU host describes the cluster to
+    JAX.  Loopback multi-process CPU tests use the same arguments
+    (tests/test_distributed.py).
     """
     if jax.process_count() > 1:
         return  # already initialized

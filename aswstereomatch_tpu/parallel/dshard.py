@@ -1,8 +1,8 @@
 """Disparity-axis sharding — the tensor-parallel analog (SURVEY.md 2.2).
 
-Shards the candidate-disparity axis over the mesh "tile" axis: each chip
+Shards the candidate-disparity axis over the mesh "tile" axis: each device
 aggregates only its D/n-candidate slab (cost + ASW for those d's — the slab
-never exceeds D/n planes, so even the non-Pallas path fits large volumes),
+never exceeds D/n planes, so large volumes fit),
 runs a local WTA with the subpixel triple, and the global winner is a
 lexicographic (cost, then lower-d) min-combine across shards — the collective
 equivalent of a (cost, index)-pair pmin.  The right-view partial argmin is
@@ -32,79 +32,6 @@ from ..ops import aggregate, postprocess
 from . import mesh as mesh_lib
 
 
-def _pallas_shard_wta(ls_ext_g, rs_pad_g, k, cfg, ds, D, h, w):
-    """Windowed x-lanes-kernel WTA for d-shard ``k`` (global d in
-    [k*ds, (k+1)*ds)), on pre-padded channel stacks.
-
-    Factored out of the ``shard_map`` body so the IDENTICAL construction
-    can also run with a static shard index on a single device:
-    ``tools/tpu_fuzz.py`` Mosaic-validates the d-window kernel form this
-    way (a single chip cannot host the n-device mesh, but the kernel
-    bytes it compiles here are exactly the sharded path's)."""
-    from ..ops.pallas import asw_kernel
-
-    r = cfg.window_radius
-    dk = ds + 2  # slab + one overlap d per side for the subpixel triple
-    s0 = k * ds - 1  # kernel-local d' <-> global d = s0 + d'
-    # R'(v) = R(v - s0); slice the wide-padded stack so the kernel's
-    # [-(r + dk - 1), W - 1 + r] window lands on real columns.
-    start = D - (k + 1) * ds  # = (r + D) - (r + dk - 1) - s0
-    rs_ext = lax.dynamic_slice(
-        rs_pad_g,
-        (0, 0, start),
-        (7, h, w + 2 * r + dk - 1),
-    )
-    kouts = asw_kernel.wta_outputs_from_stacks(
-        ls_ext_g, rs_ext, cfg.replace(max_disparity=dk), w,
-        want_strip=True, d_window=(1, ds + 1),
-    )
-    bestc = kouts["bestc"]
-    bestd = s0 + kouts["bestd"]
-    cm = kouts["cm"]
-    cp = kouts["cp"]
-    # Right view: kernel column u is real right col x' = u - s0.
-    # Kernel-frame u < 0 lives in the exported strip (e.g. shard 0's
-    # x' = 0 sits at u = -1); u beyond W-1 would be x' whose slab
-    # candidates all have x' + d >= W (no left pixel) — correctly
-    # absent, padded inf.
-    full_c = jnp.concatenate(
-        [kouts["r_strip_c"], kouts["rbestc"]], axis=1
-    )  # u in [-(dk-1), W)
-    full_d = jnp.concatenate(
-        [kouts["r_strip_d"], kouts["rbestd"]], axis=1
-    )
-    pc = jnp.pad(full_c, ((0, 0), (0, D)), constant_values=jnp.inf)
-    pd = jnp.pad(full_d, ((0, 0), (0, D)))
-    start = s0 + dk - 1  # index of real x' = 0 (= d0 + ds >= 0)
-    rbestc = lax.dynamic_slice(pc, (0, start), (h, w))
-    rbestd = s0 + lax.dynamic_slice(pd, (0, start), (h, w))
-    return bestc, bestd, cm, cp, rbestc, rbestd
-
-
-def shard_wta_outputs(left, right, cfg, k: int, n: int):
-    """Run shard ``k`` of ``n``'s windowed-kernel WTA on the CURRENT
-    device, no mesh required — the single-chip hardware entry for the
-    d-window kernel form (fuzz + smoke).  Returns the per-shard
-    (bestc, bestd, cm, cp, rbestc, rbestd) tuple the combine step merges."""
-    from ..ops import preprocess
-
-    D = cfg.max_disparity
-    if D % n:
-        raise ValueError(f"max_disparity {D} not divisible by {n} d-shards")
-    ds = D // n
-    h, w = left.shape[:2]
-    r = cfg.window_radius
-    ls_ext_g = jnp.pad(
-        preprocess.channel_stack(left), ((0, 0), (0, 0), (r, r)), mode="edge"
-    )
-    rs_pad_g = jnp.pad(
-        preprocess.channel_stack(right),
-        ((0, 0), (0, 0), (r + D, r + 1)),
-        mode="edge",
-    )
-    return _pallas_shard_wta(ls_ext_g, rs_pad_g, k, cfg, ds, D, h, w)
-
-
 def match_pair_dsharded(
     left: jnp.ndarray,
     right: jnp.ndarray,
@@ -114,15 +41,8 @@ def match_pair_dsharded(
     """Single pair with the disparity axis sharded over "tile".
 
     Images are replicated (they are ~100x smaller than the volume); only
-    per-shard winner planes cross the ICI in the combine step.
-
-    Kernel layout: d-sharding requires the x-lanes kernel's [lo, hi)
-    disparity window, so left-only ASW runs x-lanes here even though the
-    unsharded `kernel_layout="auto"` resolves it to the d-lanes fast path.
-    Output is bit-exact vs the unsharded pipeline at
-    `kernel_layout="xlanes"` (pinned by tests); vs the unsharded d-lanes
-    default it agrees to f32-reduction-order (argmin-level).  An explicit
-    `kernel_layout="dlanes"` is rejected rather than silently overridden.
+    per-shard winner planes cross the interconnect in the combine step.
+    ASW only: d-sharded box aggregation is not supported.
     """
     axis = mesh_lib.TILE_AXIS
     n = device_mesh.shape[axis]
@@ -144,33 +64,10 @@ def match_pair_dsharded(
     ds = D // n
     h, w = left.shape[:2]
 
-    from ..models.pipeline import _resolve_backend
-
-    use_pallas = _resolve_backend(cfg, left.shape) == "pallas"
-    if cfg.aggregation != "asw" and not (
-        cfg.aggregation == "box" and use_pallas
-    ):
+    if cfg.aggregation != "asw":
         raise ValueError(
-            "disparity sharding covers asw (both backends) and box (pallas)"
+            "disparity sharding covers the asw aggregation only"
         )
-    if use_pallas and cfg.kernel_layout == "dlanes":
-        raise ValueError(
-            "kernel_layout='dlanes' is a single-shard fast path; "
-            "disparity-sharded runs use the x-lanes kernel (its [lo, hi) "
-            "disparity window) — use kernel_layout 'auto' or 'xlanes'"
-        )
-    if use_pallas:
-        from ..ops import preprocess
-
-        r = cfg.window_radius
-        ls_pre = preprocess.channel_stack(left)
-        rs_pre = preprocess.channel_stack(right)
-        ls_ext_g = jnp.pad(ls_pre, ((0, 0), (0, 0), (r, r)), mode="edge")
-        # Right stack padded wide enough for any slab's shifted window:
-        # shard k matches global d in [k*ds - 1, k*ds + ds + 1), realized by
-        # running the kernel with D=dk on the right stack shifted by
-        # s0 = k*ds - 1 columns.
-        rs_pad_g = jnp.pad(rs_pre, ((0, 0), (0, 0), (r + D, r + 1)), mode="edge")
 
     @functools.partial(
         shard_map,
@@ -183,37 +80,32 @@ def match_pair_dsharded(
         k = lax.axis_index(axis)
         d0 = k * ds
         take = lambda a, i: jnp.take_along_axis(a, i[..., None], axis=-1)[..., 0]
-        if use_pallas:
-            bestc, bestd, cm, cp, rbestc, rbestd = _pallas_shard_wta(
-                ls_ext_g, rs_pad_g, k, cfg, ds, D, h, w
-            )
-        else:
-            # Slab with one overlap d per side (clamped) for the triple.
-            local = jnp.arange(ds + 2) - 1
-            d_idx = jnp.clip(d0 + local, 0, D - 1)
-            slab = aggregate.aggregate_asw(l_img, r_img, cfg, d_indices=d_idx)
-            interior = slab[..., 1 : 1 + ds]  # (H, W, ds)
+        # Slab with one overlap d per side (clamped) for the triple.
+        local = jnp.arange(ds + 2) - 1
+        d_idx = jnp.clip(d0 + local, 0, D - 1)
+        slab = aggregate.aggregate_asw(l_img, r_img, cfg, d_indices=d_idx)
+        interior = slab[..., 1 : 1 + ds]  # (H, W, ds)
 
-            # Local left-view winner + triple.
-            loc = jnp.argmin(interior, axis=-1).astype(jnp.int32)
-            bestc = take(interior, loc)
-            cm = take(slab, loc)          # slab index loc = interior loc - 1
-            cp = take(slab, loc + 2)
-            bestd = d0 + loc
+        # Local left-view winner + triple.
+        loc = jnp.argmin(interior, axis=-1).astype(jnp.int32)
+        bestc = take(interior, loc)
+        cm = take(slab, loc)          # slab index loc = interior loc - 1
+        cp = take(slab, loc + 2)
+        bestd = d0 + loc
 
-            # Local right-view partial: C_R(x', d) = C_L(x'+d, d), d in slab.
-            x = jnp.arange(w)[None, :, None]
-            dg = (d0 + jnp.arange(ds))[None, None, :]
-            idx = x + dg  # (1, W, ds)
-            gathered = jnp.take_along_axis(
-                interior,
-                jnp.broadcast_to(jnp.minimum(idx, w - 1), interior.shape),
-                axis=1,
-            )
-            rslab = jnp.where(idx <= w - 1, gathered, jnp.inf)
-            rloc = jnp.argmin(rslab, axis=-1).astype(jnp.int32)
-            rbestc = take(rslab, rloc)
-            rbestd = d0 + rloc
+        # Local right-view partial: C_R(x', d) = C_L(x'+d, d), d in slab.
+        x = jnp.arange(w)[None, :, None]
+        dg = (d0 + jnp.arange(ds))[None, None, :]
+        idx = x + dg  # (1, W, ds)
+        gathered = jnp.take_along_axis(
+            interior,
+            jnp.broadcast_to(jnp.minimum(idx, w - 1), interior.shape),
+            axis=1,
+        )
+        rslab = jnp.where(idx <= w - 1, gathered, jnp.inf)
+        rloc = jnp.argmin(rslab, axis=-1).astype(jnp.int32)
+        rbestc = take(rslab, rloc)
+        rbestd = d0 + rloc
 
         # Global combine: ordered strict-< merge over ascending shards.
         parts = lax.all_gather(
@@ -243,7 +135,7 @@ def match_pair_dsharded(
         )
 
         outs = {"bestc": bc, "bestd": bd, "cm": bcm, "cp": bcp, "rbestd": rd}
-        disp = pipeline._disp_pre_from_wta(outs, cfg)
+        disp = pipeline.disp_pre_from_winners(outs, cfg)
         if cfg.median_filter:
             disp = postprocess.median_filter(
                 disp, cfg, pipeline._guide_lab(l_img, cfg)

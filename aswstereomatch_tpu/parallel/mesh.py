@@ -1,15 +1,16 @@
 """Device-mesh construction (SURVEY.md section 2.2).
 
 The reference is single-process/single-thread with no communication layer;
-the TPU-native equivalent of a comm backend is XLA collectives over a named
-``jax.sharding.Mesh``:
+the JAX equivalent of a comm backend is XLA collectives over a named
+``jax.sharding.Mesh`` — a plain (data, tile) grid; the GPUs of one host are
+joined all to all, so no device order matters for neighbor traffic:
 
-  - axis "data": independent stereo pairs (batch) — DP; rides DCN across
-    hosts, no intra-step communication.
+  - axis "data": independent stereo pairs (batch) — DP; no intra-step
+    communication.
   - axis "tile": spatial image tiles — the sequence/context-parallel analog;
-    halo exchange rides ICI via ``ppermute`` (parallel/tiling.py).
+    halo exchange via ``ppermute`` (parallel/tiling.py).
 
-``build_mesh`` works with however many devices are visible (real TPU slice or
+``build_mesh`` works with however many devices are visible (real GPUs or
 ``--xla_force_host_platform_device_count`` fakes for tests).
 """
 

@@ -1,14 +1,15 @@
 """Ulysses-analog all_to_all reshard: spatial-sharded <-> disparity-sharded.
 
 SURVEY.md section 2.2 lists the optional layout switch between the
-*spatial*-sharded layout that cost construction likes (each chip holds all D
-for a column band) and the *disparity*-sharded layout that WTA combination
-likes (each chip holds a D-slab for all columns).  This is the stereo
+*spatial*-sharded layout that cost construction likes (each device holds all
+D for a column band) and the *disparity*-sharded layout that WTA combination
+likes (each device holds a D-slab for all columns).  This is the stereo
 equivalent of DeepSpeed-Ulysses' sequence<->head all_to_all, built on
 ``jax.lax.all_to_all`` over the mesh "tile" axis.
 
-In this engine the end-to-end paths avoid the reshard (the fused kernel
-tracks WTA online; dshard.py aggregates slabs directly), so this component
+In this engine the end-to-end paths avoid the reshard (the x-tiled layout
+merges per-shard winners; dshard.py aggregates slabs directly), so this
+component
 exists for pipelines that *do* materialize slabs — e.g. exporting an
 x-sharded aggregated volume for disparity-sharded analysis — and to
 document/validate the collective choreography.  Round-trip and layout

@@ -1,8 +1,8 @@
 """Spatial tiling with halo exchange — the sequence-parallel analog.
 
-The BASELINE north star requires "rectified stereo pairs sharded as image
-tiles with halo exchange across a multi-host TPU pod slice".  This module
-shards the image row (y) axis over the mesh "tile" axis under ``shard_map``:
+Rectified stereo pairs are sharded as image tiles with halo exchange across
+the devices of a mesh.  This module shards the image row (y) axis over the
+mesh "tile" axis under ``shard_map``:
 
   - y-tiling is the preferred layout (SURVEY.md section 7 "weak scaling"):
     every stage's x-dependencies (cost x-d access, LR gather, per-row hole
@@ -153,8 +153,8 @@ def match_batch_sharded(
 ) -> jnp.ndarray:
     """Batched throughput mode: batch over "data" x rows over "tile".
 
-    (B, H, W[, 3]) inputs; the batch axis shards over DCN-friendly "data"
-    (no intra-step collectives), rows over "tile" (ICI halo exchange).
+    (B, H, W[, 3]) inputs; the batch axis shards over "data" (no
+    intra-step collectives), rows over "tile" (halo exchange).
     """
     axis = mesh_lib.TILE_AXIS
     daxis = mesh_lib.DATA_AXIS
@@ -216,10 +216,6 @@ def match_batch_sharded(
         l_ext = jnp.moveaxis(l_ext, 0, 1)
         r_ext = jnp.moveaxis(r_ext, 0, 1)
         fn = lambda l, r: _match_tile(l, r, cfg, halo, rows, h, axis)
-        # Mosaic cannot vmap the d-lanes kernels (ANY-memspace cost
-        # volume; see pipeline.dlanes_routed) — batch those sequentially.
-        if pipeline.dlanes_routed(cfg, l_ext.shape[1:]):
-            return lax.map(lambda lr: fn(lr[0], lr[1]), (l_ext, r_ext))
         return jax.vmap(fn)(l_ext, r_ext)
 
     out = run(lefts, rights)
@@ -288,14 +284,6 @@ def match_pair_tiled_x(
     the small per-view winner planes are then all-gathered so the x-global
     post-processing stages (LR gather along x, row fill, median) run
     replicated — bit-identical to the untiled pipeline.
-
-    Kernel layout: x-tiling needs the x-lanes kernel's right-view strip
-    export, so left-only ASW runs x-lanes here even though the unsharded
-    `kernel_layout="auto"` resolves it to the d-lanes fast path.  Output
-    is bit-exact vs the unsharded pipeline at `kernel_layout="xlanes"`
-    (pinned by tests); vs the unsharded d-lanes default it agrees to
-    f32-reduction-order (argmin-level).  An explicit
-    `kernel_layout="dlanes"` is rejected rather than silently overridden.
     """
     _reject_global_aggregation(cfg)
     from ..ops import aggregate, postprocess, preprocess
@@ -326,19 +314,6 @@ def match_pair_tiled_x(
 
     spec = P(None, None, axis)
 
-    from ..models.pipeline import _resolve_backend
-
-    use_pallas = _resolve_backend(cfg, (h, ws)) == "pallas"
-    if use_pallas:
-        from ..ops.pallas import asw_kernel
-
-        if cfg.kernel_layout == "dlanes":
-            raise ValueError(
-                "kernel_layout='dlanes' is a single-shard fast path; "
-                "x-tiled runs use the x-lanes kernel (its right-view strip "
-                "export) — use kernel_layout 'auto' or 'xlanes'"
-            )
-
     @functools.partial(
         shard_map,
         mesh=device_mesh,
@@ -352,55 +327,41 @@ def match_pair_tiled_x(
         l_ext = _exchange_halos_x(l_blk, hr, hr, axis)
         r_ext = _exchange_halos_x(r_blk, hl_right, hr, axis)
 
-        if use_pallas:
-            n_valid = jnp.clip(w - x0, 0, ws)  # real left cols in this shard
-            kouts = asw_kernel.wta_outputs_from_stacks(
-                l_ext, r_ext, cfg, n_valid, want_strip=True
-            )
-            keys = ("bestd", "bestc", "cm", "cp")
-            if cfg.uniqueness_ratio > 0:
-                keys += ("ubest",)
-            outs = {key: kouts[key] for key in keys}
-            own_c, own_d = kouts["rbestc"], kouts["rbestd"]
-            strip_c, strip_d = kouts["r_strip_c"], kouts["r_strip_d"]
+        if cfg.aggregation == "box":
+            vol_ext = aggregate.cost_volume_from_stacks(l_ext, r_ext, cfg)
+            vol = aggregate.aggregate_box(vol_ext, cfg)
         else:
-            if cfg.aggregation == "box":
-                vol_ext = aggregate.cost_volume_from_stacks(l_ext, r_ext, cfg)
-                vol = aggregate.aggregate_box(vol_ext, cfg)
-            else:
-                vol = aggregate.aggregate_asw_from_stacks(l_ext, r_ext, cfg)
-            outs = wta_ops.wta_with_triple(vol)  # local (H, ws) planes
-            if cfg.uniqueness_ratio > 0:
-                # per-pixel over the full d row — position-independent, so
-                # tiled == untiled stays bit-exact
-                outs["ubest"] = wta_ops.second_best_excl_neighbors(
-                    vol, outs["bestd"]
-                )
-            else:
-                outs.pop("ubest", None)
-
-            # Right-view partial over x' in [x0 - (D-1), x0 + ws): candidate
-            # (x', d) lives here iff left pixel x'+d is owned and real.
-            xg = x0 + jnp.arange(ws)[None, :, None]  # global owned x
-            vol_r = jnp.where(xg <= w - 1, vol, jnp.inf)  # exclude padding
-            jj = jnp.arange(ws + D - 1)[:, None]  # partial-buffer index
-            dd = jnp.arange(D)[None, :]
-            src = jj - (D - 1) + dd  # local left col feeding (j, d)
-            valid = (src >= 0) & (src < ws)
-            gath = jnp.take_along_axis(
-                vol_r,
-                jnp.broadcast_to(
-                    jnp.clip(src, 0, ws - 1)[None], (h, ws + D - 1, D)
-                ),
-                axis=1,
+            vol = aggregate.aggregate_asw_from_stacks(l_ext, r_ext, cfg)
+        outs = wta_ops.wta_with_triple(vol)  # local (H, ws) planes
+        if cfg.uniqueness_ratio > 0:
+            # per-pixel over the full d row — position-independent, so
+            # tiled == untiled stays bit-exact
+            outs["ubest"] = wta_ops.second_best_excl_neighbors(
+                vol, outs["bestd"]
             )
-            gath = jnp.where(valid[None], gath, jnp.inf)
-            rpart_c = jnp.min(gath, axis=-1)
-            rpart_d = jnp.argmin(gath, axis=-1).astype(jnp.int32)
-            own_c = rpart_c[:, D - 1 :]
-            own_d = rpart_d[:, D - 1 :]
-            strip_c = rpart_c[:, : D - 1]
-            strip_d = rpart_d[:, : D - 1]
+
+        # Right-view partial over x' in [x0 - (D-1), x0 + ws): candidate
+        # (x', d) lives here iff left pixel x'+d is owned and real.
+        xg = x0 + jnp.arange(ws)[None, :, None]  # global owned x
+        vol_r = jnp.where(xg <= w - 1, vol, jnp.inf)  # exclude padding
+        jj = jnp.arange(ws + D - 1)[:, None]  # partial-buffer index
+        dd = jnp.arange(D)[None, :]
+        src = jj - (D - 1) + dd  # local left col feeding (j, d)
+        valid = (src >= 0) & (src < ws)
+        gath = jnp.take_along_axis(
+            vol_r,
+            jnp.broadcast_to(
+                jnp.clip(src, 0, ws - 1)[None], (h, ws + D - 1, D)
+            ),
+            axis=1,
+        )
+        gath = jnp.where(valid[None], gath, jnp.inf)
+        rpart_c = jnp.min(gath, axis=-1)
+        rpart_d = jnp.argmin(gath, axis=-1).astype(jnp.int32)
+        own_c = rpart_c[:, D - 1 :]
+        own_d = rpart_d[:, D - 1 :]
+        strip_c = rpart_c[:, : D - 1]
+        strip_d = rpart_d[:, : D - 1]
 
         # Merge with the next shard's left strip (its candidates have
         # strictly larger d for the same x', so strict-< keeps first-min).
@@ -432,7 +393,7 @@ def match_pair_tiled_x(
             for f in fields
         ]
         gouts = {k: v[:, :w] for k, v in zip(names, full)}
-        disp = pipeline._disp_pre_from_wta(gouts, cfg)
+        disp = pipeline.disp_pre_from_winners(gouts, cfg)
         if cfg.median_filter:
             guide = None
             if cfg.median_mode == "weighted":

@@ -13,7 +13,7 @@ conversion therefore avoids ``pow`` entirely:
     pinned to 8-bit-integral RGB values (the reference operates on 8-bit
     images; arbitrary floats are rounded to the 8-bit grid);
   - the CIE cube root uses an exponent-bit-hack seed + 4 Newton iterations,
-    i.e. only IEEE mul/add/div, identical across NumPy / XLA CPU / TPU to
+    i.e. only IEEE mul/add/div, identical across NumPy / XLA CPU / GPU to
     ~1 ulp.
 
 Pinned conventions (see config.py):
@@ -57,8 +57,8 @@ def rgb_to_gray(rgb, xp):
 def cbrt_newton(t, xp):
     """Cube root for t >= 0 via exponent-bit seed + 4 Newton steps.
 
-    Uses only bitcasts and IEEE mul/add/div so NumPy, XLA CPU and TPU agree
-    to ~1 ulp.  (Classic float hack: bits/3 + magic approximates cbrt to ~5%.)
+    Uses only bitcasts and IEEE mul/add/div so NumPy and XLA (CPU, GPU)
+    agree to ~1 ulp.  (Classic float hack: bits/3 + magic approximates cbrt to ~5%.)
     """
     t = t.astype(xp.float32)
     bits = t.view(np.int32) if xp is np else None
@@ -87,36 +87,10 @@ def _lab_f(t, xp):
 
 
 def srgb_decode(rgb255, xp):
-    """[0,255] 8-bit-grid RGB -> linear RGB in [0,1] via the pinned LUT.
-
-    JAX path: TPU gathers serialize, so the 256-entry lookup runs as a
-    one-hot matmul on the MXU — bit-exact (each row of the one-hot has a
-    single 1.0, so the dot reduces to one product; no rounding, no
-    order-dependence), and ~3x faster at image scale."""
+    """[0,255] 8-bit-grid RGB -> linear RGB in [0,1] via the pinned LUT
+    (a plain gather in both namespaces)."""
     idx = xp.clip(xp.round(rgb255), 0, 255).astype(xp.int32)
-    lut = xp.asarray(SRGB_DECODE_LUT)
-    if xp is np:
-        return lut[idx]
-    import jax
-    import jax.lax as lax
-
-    if jax.default_backend() != "tpu":
-        # Off-TPU the gather is cheap and the one-hot would materialize a
-        # (H*W*3, 256) f32 operand (~1.4 GB at KITTI scale on XLA-CPU).
-        # Both forms are bit-exact (single 1.0 per one-hot row), so the
-        # per-backend choice cannot change results.
-        return lut[idx]
-
-    onehot = (idx[..., None] == xp.arange(256, dtype=xp.int32)).astype(
-        xp.float32
-    )
-    out = lax.dot_general(
-        onehot.reshape(-1, 256),
-        lut.reshape(256, 1),
-        (((1,), (0,)), ((), ())),
-        precision=lax.Precision.HIGHEST,
-    )
-    return out.reshape(idx.shape)
+    return xp.asarray(SRGB_DECODE_LUT)[idx]
 
 
 def rgb_to_lab(rgb, xp):

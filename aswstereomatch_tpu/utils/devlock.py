@@ -1,26 +1,21 @@
-"""Advisory exclusive lock for the TPU device, shared by this repo's tools.
+"""Advisory exclusive lock for the accelerator, shared by this repo's tools.
 
-The environment exposes ONE TPU chip and device access is serialized per
-process: a second process that touches the backend queues behind the first
-for the first process's entire lifetime (observed live: a bench run queued
-behind a detached cache-warming child, missed its deadline, and spawned
-another child — a pile-up where every participant starves).  There is no
-device-side arbitration to appeal to, so the tools arbitrate among
-themselves with an advisory ``flock``:
+One JAX process per card: a JAX process reserves most of the card's memory
+when it first touches it, so a second process on the same card fails for
+want of memory partway into its run — or, if it fits, the two take turns
+and spoil each other's timings.  The long-lived device owners therefore
+arbitrate among themselves with an advisory ``flock``:
 
 - ``bench.py`` (measurement would be corrupted by a concurrent holder),
-- ``tools/tpu_smoke.py`` / ``tools/ablate_sym_kernel.py`` (same),
-- ``tools/serve.py`` / ``tools/sweep.py`` (long-lived device owners).
+- ``tools/serve.py`` / ``tools/sweep.py`` (long-lived device owners),
+- the one-shot measurement tools under ``tools/``.
 
-``flock`` is released by the kernel on process death, so a crashed holder
-can never wedge the lock.  The lock file carries ``{pid, label, since}`` so
-a blocked acquirer can say WHO holds the device — turning a silent
-multi-minute stall into an actionable one-line diagnosis.
+A second owner fails fast, naming the holder, instead of dying later on an
+out-of-memory error.  ``flock`` is released by the kernel on process death,
+so a crashed holder can never wedge the lock.  The lock file carries
+``{pid, label, since}`` so a blocked acquirer can say WHO holds the device.
 
-The reference (single C++ process, SURVEY.md section 1) has no analogous
-component; this is runtime infrastructure the serialized-TPU deployment
-shape demands.  Purely host-side: no JAX import, safe during backend
-outages.
+Purely host-side: no JAX import.
 """
 
 from __future__ import annotations
@@ -29,11 +24,15 @@ import contextlib
 import fcntl
 import json
 import os
+import tempfile
 import time
 
 
 def lock_path() -> str:
-    return os.environ.get("ASW_DEVICE_LOCK", "/tmp/asw_tpu_device.lock")
+    return os.environ.get(
+        "ASW_DEVICE_LOCK",
+        os.path.join(tempfile.gettempdir(), "aswstereomatch_device.lock"),
+    )
 
 
 def holder_info() -> dict | None:
@@ -72,7 +71,7 @@ def device_lock(label: str, timeout_s: float = 300.0, poll_s: float = 1.0):
                     # Holder first: callers truncate this message into
                     # one-line diagnostics, and WHO is the useful part.
                     raise TimeoutError(
-                        f"TPU device held by {held}; waited "
+                        f"accelerator held by {held}; waited "
                         f"{timeout_s:.0f}s on lock {lock_path()}"
                     ) from None
                 time.sleep(min(poll_s, max(0.01, deadline - time.monotonic())))

@@ -1,6 +1,6 @@
 """Disparity-map evaluation: bad-delta pixel-error rates and deltas.
 
-TPU-native replacement for the reference's L6 evaluation layer (SURVEY.md
+JAX-side replacement for the reference's L6 evaluation layer (SURVEY.md
 section 1 / section 3.4): ``bad = mean(|disp - gt| > delta)`` over valid GT
 pixels, with Middlebury/KITTI scale handling done at load time (utils/io.py).
 Also provides the "delta vs another implementation" metric the BASELINE target

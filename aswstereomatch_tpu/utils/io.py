@@ -1,6 +1,6 @@
 """Image / disparity I/O and ground-truth scaling.
 
-TPU-native replacement for the reference's L0 layer (SURVEY.md section 1:
+Replacement for the reference's L0 layer (SURVEY.md section 1:
 ``cv::imread`` / ``cv::imwrite`` plus Middlebury/KITTI ground-truth scale
 conventions in its evaluation layer).  Pure-Python/NumPy decoders for PGM/PPM
 and PFM (the Middlebury formats), PNG via cv2 when available (test harness

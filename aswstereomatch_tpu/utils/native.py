@@ -1,6 +1,6 @@
 """ctypes bindings for the native host data path (native/stereoio.cpp).
 
-The reference's host layer is C++ (OpenCV I/O); this is the TPU-native
+The reference's host layer is C++ (OpenCV I/O); this is the
 stack's equivalent: a zero-dependency C++ codec/evaluator compiled to
 ``native/libstereoio.so``.  The library is built on demand with ``make``
 (g++ is in the image); every entry point has a pure-Python fallback in

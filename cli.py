@@ -1,6 +1,6 @@
 """Command-line driver (SURVEY.md section 1, L7 + section 5 observability).
 
-TPU-native replacement for the reference's main(): load (or synthesize) a
+Replacement for the reference's main(): load (or synthesize) a
 rectified pair, run a configured matcher, write the disparity map + error-map
 artifacts and a structured JSON run record (config hash, bad-delta table,
 density, pairs/s, device).
@@ -41,12 +41,11 @@ def build_parser():
     cfg.add_argument("--cost", choices=["ad", "tad_grad"])
     cfg.add_argument("--aggregation", choices=["none", "box", "asw", "sgm"])
     cfg.add_argument("--window-radius", type=int)
-    cfg.add_argument("--backend", choices=["auto", "jnp", "pallas"])
     cfg.add_argument("--y-chunks", type=int)
     cfg.add_argument("--left-only-weights", action="store_true",
-                     help="left-only ASW weights (the documented speed "
-                          "mode: ~5x at KITTI via the d-lanes MXU kernel; "
-                          "bad-2.0 stays within the 1%% budget)")
+                     help="left-only ASW weights (an approximation of the "
+                          "symmetric two-view weighting; bad-2.0 stays within "
+                          "the 1%% budget)")
     cfg.add_argument("--separable", action="store_true",
                      help="two-pass separable ASW approximation (O(K) taps "
                           "per pixel instead of O(K^2); accuracy tracks "
@@ -58,8 +57,6 @@ def build_parser():
     cfg.add_argument("--no-fill", action="store_true",
                      help="refuse mode: gated pixels stay -1 instead of "
                      "being filled (partial-coverage operating point)")
-    cfg.add_argument("--kernel-layout", choices=["auto", "xlanes", "dlanes"],
-                     help="Pallas data layout (auto picks per config)")
     cfg.add_argument("--no-postprocess", action="store_true",
                      help="disable LR check / fill / subpixel / median")
     run = ap.add_argument_group("execution")
@@ -113,9 +110,7 @@ def main(argv=None):
     for field, name in [
         ("max_disparity", "max_disparity"), ("cost", "cost"),
         ("aggregation", "aggregation"), ("window_radius", "window_radius"),
-        ("backend", "backend"), ("y_chunks", "y_chunks"),
-        ("kernel_layout", "kernel_layout"),
-        ("uniqueness_ratio", "uniqueness_ratio"),
+        ("y_chunks", "y_chunks"), ("uniqueness_ratio", "uniqueness_ratio"),
     ]:
         v = getattr(args, name)
         if v is not None:
@@ -142,11 +137,8 @@ def main(argv=None):
     if not parallel_api.layout_fits(cfg):
         # Single-device (including a declared mesh that doesn't fit the
         # visible devices — layout_fits warns and sharded_match_fn would run
-        # the identical unsharded pipeline): the AOT executable cache turns
-        # the 1-4 min Mosaic cold compile into a ~0.2 s load across CLI
-        # invocations.  Mesh runs stay on jit — serialized executables bind
-        # the device topology.
-        from aswstereomatch_tpu.utils import aotcache
+        # the identical unsharded pipeline).
+        from aswstereomatch_tpu.models.pipeline import StereoMatcher
 
         # 8-bit sources (PNG/PNM) ship to the device as uint8 — 4x less
         # host-to-device transfer, lossless (the compiled program widens
@@ -158,12 +150,11 @@ def main(argv=None):
         ):
             l_dev = jnp.asarray(left.astype(np.uint8))
             r_dev = jnp.asarray(right.astype(np.uint8))
-        fn, _src = aotcache.cached_match_pair(cfg, l_dev, r_dev)
+        fn = StereoMatcher(cfg)
     else:
         fn = jax.jit(parallel_api.sharded_match_fn(cfg))
 
-    disp = fn(l_dev, r_dev)
-    profiling.force_sync(disp)
+    disp = jax.block_until_ready(fn(l_dev, r_dev))
     compile_s = time.perf_counter() - t0
 
     with profiling.trace(args.profile):
@@ -202,4 +193,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from aswstereomatch_tpu.utils import compile_cache
+
+    compile_cache.enable()
     sys.exit(main())

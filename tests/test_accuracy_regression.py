@@ -1,8 +1,8 @@
 """Pinned accuracy-regression thresholds on the adversarial synthetic regime.
 
 Round 1's layered scenes were too easy (bad-2.0 <= 0.4% everywhere) to catch
-accuracy regressions from performance work (bf16 operand storage, left-only
-fast paths, kernel restructurings).  ``synthetic.make_hard_pair`` adds
+accuracy regressions from performance work (reduced-precision storage,
+left-only fast paths, kernel restructurings).  ``synthetic.make_hard_pair`` adds
 textureless patches, per-view sensor noise, fractional disparities, and a
 brightness/contrast mismatch between views; measured error rates there are
 1.6-8.6% bad-2.0 — real signal.  Thresholds pin the measured round-2 values
@@ -18,47 +18,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from aswstereomatch_tpu.config import StereoConfig
+from aswstereomatch_tpu.config import HARD_PIN_CFG, HARD_PINS, StereoConfig
 from aswstereomatch_tpu.models import pipeline
 from aswstereomatch_tpu.utils import evaluate, synthetic
 
-CFG = StereoConfig(
-    max_disparity=24, cost="tad_grad", aggregation="asw", window_radius=8,
-    lr_check=True, fill_holes=True, subpixel=True, median_filter=True,
-    backend="jnp",
-)
-
-# (mode, cfg, per-seed {seed: (bad2_max, epe_max)}); measured round 2:
-#   sym      b2 = 1.60 / 4.70 / 1.83 %,  epe = 0.19 / 0.44 / 0.27
-#   leftonly b2 = 2.41 / 6.75 / 2.64 %,  epe = 0.27 / 0.73 / 0.37
-#   box      b2 = 4.91 / 8.55 / 4.96 %,  epe = 0.51 / 0.92 / 0.57
-CASES = [
-    ("sym", CFG, {0: (0.023, 0.28), 1: (0.066, 0.62), 2: (0.026, 0.38)}),
-    (
-        "leftonly",
-        CFG.replace(asw_symmetric=False),
-        {0: (0.034, 0.39), 1: (0.095, 1.03), 2: (0.037, 0.52)},
-    ),
-    (
-        "box",
-        CFG.replace(aggregation="box"),
-        {0: (0.069, 0.72), 1: (0.120, 1.30), 2: (0.070, 0.80)},
-    ),
-    # Two-pass separable approximation (asw_separable): measured round 2
-    #   sepsym b2 = 1.68 / 4.57 / 1.87 %, epe = 0.18 / 0.39 / 0.28 —
-    #   within noise of exact sym (1.60 / 4.70 / 1.83); the approximation
-    #   must KEEP tracking exact, hence same-headroom pins.
-    (
-        "sepsym",
-        CFG.replace(asw_separable=True),
-        {0: (0.024, 0.26), 1: (0.064, 0.55), 2: (0.027, 0.39)},
-    ),
-    (
-        "seplo",
-        CFG.replace(asw_separable=True, asw_symmetric=False),
-        {0: (0.027, 0.30), 1: (0.087, 0.93), 2: (0.032, 0.45)},
-    ),
-]
+# Bounds and base config are single-sourced in config.py (shared with the
+# on-card smoke, chip_smoke.py).
+CFG = StereoConfig(**HARD_PIN_CFG)
+CASES = [(mode, CFG.replace(**over), bounds) for mode, over, bounds in HARD_PINS]
 
 
 def _run(cfg, pair):
@@ -124,11 +91,12 @@ def test_slanted_plane_subpixel_quality():
 # Two layers of pinning:
 #   - live, CI-scale (96x160, D=24) on every run, both weight modes;
 #   - the committed KITTI-geometry record (bench_results/
-#     sep_vs_exact_kitti.json, produced on TPU by tools/pin_sep_accuracy.py
-#     — exact jnp at KITTI takes >9 min/pair on CPU, measured round 3, so
-#     production scale cannot run live here).  The record's config hashes
-#     are re-derived at test time: a config-surface change invalidates the
-#     record and fails the test until the pin is re-run on hardware.
+#     sep_vs_exact_kitti.json, produced on the GPU by
+#     tools/pin_sep_accuracy.py — exact ASW at KITTI takes >9 min/pair on
+#     CPU, so production scale cannot run live here).  The record's config
+#     hashes are re-derived at test time: a config-surface change
+#     invalidates the record and fails the test until the pin is re-run on
+#     the card.
 
 # Single-source bounds shared with the measurement tool
 # (tools/pin_sep_accuracy.py) via config.SEP_CONTRACT.
@@ -190,7 +158,7 @@ def test_separable_vs_exact_kitti_record():
     )
     assert os.path.exists(path), (
         "KITTI-scale separable pin record missing; run "
-        "tools/pin_sep_accuracy.py on the TPU and commit the JSON"
+        "tools/pin_sep_accuracy.py on the GPU and commit the JSON"
     )
     with open(path) as f:
         rec = json.load(f)
@@ -201,7 +169,7 @@ def test_separable_vs_exact_kitti_record():
     )
     assert rec["config_hash_exact"] == StereoConfig(**base).config_hash(), (
         "config surface changed since the KITTI pin was measured; re-run "
-        "tools/pin_sep_accuracy.py on hardware and commit the record"
+        "tools/pin_sep_accuracy.py on the GPU and commit the record"
     )
     assert rec["config_hash_sep"] == StereoConfig(
         **base, asw_separable=True

@@ -88,7 +88,7 @@ def test_cli_dataset_convention_pngs(tmp_path):
     """Both real GT on-disk conventions through the file-based CLI: an
     8-bit Middlebury scaled PNG (tsukuba x16) and a KITTI uint16 x256 PNG
     with 0 = invalid, written by the native codec — the tiny-scale twin of
-    tools/dataset_roundtrip.py (which runs the real geometries on TPU)."""
+    tools/dataset_roundtrip.py (which runs the real geometries)."""
     import pytest
 
     from aswstereomatch_tpu.utils import native

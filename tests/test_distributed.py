@@ -1,8 +1,8 @@
 """Multi-process (loopback DCN) test of the distributed batch path.
 
 SURVEY.md section 4.4: ``jax.distributed.initialize`` with 2 local processes
-over loopback on the CPU backend — the same code path a real multi-host pod
-uses for the data axis.  Each process owns 4 of 8 global devices; the batch
+over loopback on the CPU backend — the same code path a real multi-host
+deployment uses for the data axis.  Each process owns 4 of 8 global devices; the batch
 shards over (data=2-hosts-equivalent, tile) and results must match the
 single-process pipeline exactly.
 

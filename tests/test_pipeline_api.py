@@ -9,7 +9,7 @@ import aswstereomatch_tpu as asm
 
 def test_all_presets_construct_matchers():
     for name in sorted(asm.PRESETS):
-        m = asm.StereoMatcher.from_preset(name, backend="jnp")
+        m = asm.StereoMatcher.from_preset(name)
         assert m.cfg.max_disparity >= 16
 
 
@@ -40,73 +40,57 @@ def test_config_hash_stable_and_distinct():
 
 
 def test_uint8_inputs_match_float32_exactly():
-    """The serving/sweep/cli uint8 transfer path: cached_match_pair accepts
-    uint8 inputs (widened to f32 on device inside the compiled program) and
-    must produce bit-identical disparities to the f32 call for integral
+    """The serving/sweep/cli uint8 transfer path: the matcher accepts uint8
+    inputs (widened to f32 on device inside the compiled program) and must
+    produce bit-identical disparities to the f32 call for integral
     [0, 255] images."""
-    import jax.numpy as jnp
-
-    from aswstereomatch_tpu.utils import aotcache, synthetic
+    from aswstereomatch_tpu.utils import synthetic
 
     pair = synthetic.make_pair(height=32, width=48, max_disparity=8, seed=0)
     cfg = asm.StereoConfig(max_disparity=8, cost="tad_grad",
                            aggregation="asw", window_radius=3)
-    lf, rf = jnp.asarray(pair["left"]), jnp.asarray(pair["right"])
-    l8 = jnp.asarray(pair["left"].astype(np.uint8))
-    r8 = jnp.asarray(pair["right"].astype(np.uint8))
-    fn_f, _ = aotcache.cached_match_pair(cfg, lf, rf)
-    fn_8, _ = aotcache.cached_match_pair(cfg, l8, r8)
-    np.testing.assert_array_equal(
-        np.asarray(fn_8(l8, r8)), np.asarray(fn_f(lf, rf))
+    m = asm.StereoMatcher(cfg)
+    d_f = np.asarray(m(pair["left"], pair["right"]))
+    d_8 = np.asarray(
+        m(pair["left"].astype(np.uint8), pair["right"].astype(np.uint8))
     )
+    np.testing.assert_array_equal(d_8, d_f)
 
 
-def test_matcher_rides_aot_cache_and_escape_hatch():
-    """StereoMatcher defaults onto the AOT executable cache machinery
-    (utils/aotcache.py — plain jit off-TPU, disk-cached executables on
-    TPU; VERDICT round 4 'wire the AOT cache into StereoMatcher'), accepts
-    uint8 wire inputs on both entry points, and use_aot_cache=False
-    reproduces identical output through plain jax.jit."""
+def test_matcher_entry_points_are_plain_jit():
+    """StereoMatcher's entry points are plain ``jax.jit`` programs: the
+    call, batch and confidence entries agree with a jit of the pipeline
+    function, and the exposed jitted entries lower and compile ahead of
+    time (the serving daemon's warm-up path) to the same result."""
+    import jax
+
+    from aswstereomatch_tpu.models import pipeline
     from aswstereomatch_tpu.utils import synthetic
 
     pair = synthetic.make_pair(height=24, width=40, max_disparity=8, seed=3)
     cfg = asm.StereoConfig(max_disparity=8, aggregation="asw",
                            window_radius=2)
     m = asm.StereoMatcher(cfg)
-    assert m.use_aot_cache
-    d_cached = np.asarray(m(pair["left"], pair["right"]))
-    # the compile source is recorded: "jit" off-TPU, "aot-cache"/"compile"
-    # on TPU
-    assert m.last_compile_source in ("jit", "aot-cache", "compile")
-    # executables are keyed per (kind, shape, dtype): same signature reuses
-    assert len(m._compiled) == 1
-    _ = m(pair["left"], pair["right"])
-    assert len(m._compiled) == 1
-    # uint8 wire inputs widen on device: bit-identical for integral images
-    d_u8 = np.asarray(
-        m(pair["left"].astype(np.uint8), pair["right"].astype(np.uint8))
-    )
-    np.testing.assert_array_equal(d_u8, d_cached)
-    assert len(m._compiled) == 2  # new dtype, new entry
-    # escape hatch: plain jit, identical results
-    m_jit = asm.StereoMatcher(cfg, use_aot_cache=False)
-    np.testing.assert_array_equal(
-        np.asarray(m_jit(pair["left"], pair["right"])), d_cached
-    )
-    # batch entry point on both paths
-    lefts = np.stack([pair["left"]] * 2)
-    rights = np.stack([pair["right"]] * 2)
-    b_cached = np.asarray(m.batch(lefts, rights))
-    np.testing.assert_array_equal(b_cached[0], d_cached)
-    np.testing.assert_array_equal(
-        np.asarray(m_jit.batch(lefts, rights)), b_cached
-    )
+    l, r = jnp.asarray(pair["left"]), jnp.asarray(pair["right"])
+    d = np.asarray(m(l, r))
+    ref = jax.jit(lambda a, b: pipeline.match_pair(a, b, cfg))(l, r)
+    np.testing.assert_array_equal(d, np.asarray(ref))
+    compiled = m.jit_pair.lower(l, r).compile()
+    np.testing.assert_array_equal(np.asarray(compiled(l, r)), d)
+    # batch entry point: each row is the single-pair result
+    b = np.asarray(m.batch(jnp.stack([l, l]), jnp.stack([r, r])))
+    np.testing.assert_allclose(b[0], d, atol=1e-4)
+    np.testing.assert_array_equal(b[0], b[1])
+    # confidence entry: disparity identical to the plain call
+    dc, uniq, lrv = m.with_confidence(l, r)
+    np.testing.assert_array_equal(np.asarray(dc), d)
+    assert uniq.shape == lrv.shape == d.shape
+    assert isinstance(m.jit_batch, type(jax.jit(lambda x: x)))
 
 
 def test_matcher_cache_keys_both_dtypes():
-    """Mixed-dtype calls must not collide on one signature-bound
-    executable (review round-5 finding): the compiled-entry cache keys on
-    BOTH input dtypes."""
+    """Mixed-dtype calls (u8 left, f32 right) must compile their own
+    program and agree with the all-f32 call on integral images."""
     from aswstereomatch_tpu.utils import synthetic
 
     pair = synthetic.make_pair(height=24, width=40, max_disparity=8, seed=4)
@@ -118,5 +102,4 @@ def test_matcher_cache_keys_both_dtypes():
     rf = pair["right"].astype(np.float32)
     d_mixed = np.asarray(m(l8, rf))
     d_f32 = np.asarray(m(pair["left"], pair["right"]))
-    assert len(m._compiled) == 2  # distinct signatures, distinct entries
     np.testing.assert_array_equal(d_mixed, d_f32)  # integral images: lossless

@@ -27,7 +27,7 @@ def _spawn_server(tmp_path, extra_args=()):
     log = open(tmp_path / "server.log", "w")
     proc = subprocess.Popen(
         [sys.executable, os.path.join(REPO, "tools", "serve.py"),
-         "--port", str(port), "--platform", "cpu", *extra_args],
+         "--port", str(port), *extra_args],
         stdout=log, stderr=subprocess.STDOUT, env=env,
     )
     return proc, port, log

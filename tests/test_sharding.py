@@ -262,52 +262,35 @@ def test_xtiled_box_exact(pair96):
 
 
 def test_left_only_sharded_layouts_match_xlanes_exactly(pair96):
-    """Left-only ASW auto-resolves to the d-lanes kernel unsharded, but the
-    d-sharded and x-tiled paths need x-lanes features (disparity window,
-    strip export).  Pinned contract: those sharded outputs are bit-exact vs
-    the unsharded pipeline at kernel_layout='xlanes'; y-tiling routes
-    through the same auto resolution, so it stays bit-exact vs the auto
-    (d-lanes) default; an explicit 'dlanes' on the x-lanes-only paths is
-    rejected rather than silently overridden."""
+    """Left-only ASW through every sharded layout — y-tiled, d-sharded,
+    x-tiled and the batched DP x SP mesh — is bit-exact vs the unsharded
+    pipeline (one jnp path: same per-pixel ops in the same order)."""
     from aswstereomatch_tpu.parallel import dshard
 
-    cfg = CFG_FULL.replace(asw_symmetric=False, backend="pallas")
+    cfg = CFG_FULL.replace(asw_symmetric=False)
     left = jnp.asarray(pair96["left"])
     right = jnp.asarray(pair96["right"])
-
-    ref_auto = np.asarray(J(pipeline.match_pair, cfg=cfg)(left, right))
-    ref_xlanes = np.asarray(
-        J(pipeline.match_pair, cfg=cfg.replace(kernel_layout="xlanes"))(
-            left, right
-        )
-    )
+    ref = np.asarray(J(pipeline.match_pair, cfg=cfg)(left, right))
 
     m4 = mesh_lib.build_mesh(data=1, tile=4)
     out_y = np.asarray(
         J(tiling.match_pair_tiled, cfg=cfg, device_mesh=m4)(left, right)
     )
-    np.testing.assert_array_equal(out_y, ref_auto)
+    np.testing.assert_array_equal(out_y, ref)
 
     out_d = np.asarray(
         J(dshard.match_pair_dsharded, cfg=cfg, device_mesh=m4)(left, right)
     )
-    np.testing.assert_array_equal(out_d, ref_xlanes)
+    np.testing.assert_array_equal(out_d, ref)
 
     m2 = mesh_lib.build_mesh(data=1, tile=2)  # 64 cols / 2 fits the D halo
     out_x = np.asarray(
         J(tiling.match_pair_tiled_x, cfg=cfg, device_mesh=m2)(left, right)
     )
-    np.testing.assert_array_equal(out_x, ref_xlanes)
+    np.testing.assert_array_equal(out_x, ref)
 
-    bad = cfg.replace(kernel_layout="dlanes")
-    with pytest.raises(ValueError, match="single-shard fast path"):
-        dshard.match_pair_dsharded(left, right, bad, m4)
-    with pytest.raises(ValueError, match="single-shard fast path"):
-        tiling.match_pair_tiled_x(left, right, bad, m2)
-
-    # Batched DP x SP: the per-shard batch must route lax.map (Mosaic
-    # cannot vmap the d-lanes kernels — hardware-only lowering error) and
-    # still match the unsharded auto (d-lanes) pipeline exactly.
+    # Batched DP x SP: the per-shard batch is vmapped and must still match
+    # the unsharded pipeline exactly.
     m22 = mesh_lib.build_mesh(data=2, tile=2)
     lefts = jnp.stack([left, left])
     rights = jnp.stack([right, right])
@@ -317,8 +300,8 @@ def test_left_only_sharded_layouts_match_xlanes_exactly(pair96):
             slefts, srights
         )
     )
-    np.testing.assert_array_equal(out_b[0], ref_auto)
-    np.testing.assert_array_equal(out_b[1], ref_auto)
+    np.testing.assert_array_equal(out_b[0], ref)
+    np.testing.assert_array_equal(out_b[1], ref)
 
 
 def test_separable_tiled_xtiled_dsharded_exact(pair96):

@@ -4,6 +4,7 @@ threaded submitter, uint16 fetch path, manifest resume."""
 import json
 import os
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -14,16 +15,19 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 import sweep as sweep_mod  # noqa: E402
 
 # These tests run the sweep on the CPU backend inside the pytest process;
-# contending for the real TPU's advisory lock would serialize them behind
-# (or time them out against) any concurrent on-chip tool — use a private
-# lock file instead.
-os.environ.setdefault("ASW_DEVICE_LOCK", "/tmp/asw_sweep_test.lock")
+# contending for the card's advisory lock would serialize them behind (or
+# time them out against) any concurrent device tool — use a private lock
+# file instead.
+os.environ.setdefault(
+    "ASW_DEVICE_LOCK",
+    os.path.join(tempfile.gettempdir(), "asw_sweep_test.lock"),
+)
 
 
 def _run(dir_, extra=()):
     rc = sweep_mod.main([
         "--dir", dir_, "--preset", "middlebury_asw_full",
-        "--max-disparity", "8", "--window-radius", "2", "--backend", "jnp",
+        "--max-disparity", "8", "--window-radius", "2",
         *extra,
     ])
     assert rc in (0, None)

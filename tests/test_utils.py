@@ -58,13 +58,14 @@ def test_pnm_16bit(tmp_path):
 
 
 def test_profiler_trace_smoke(tmp_path):
+    import jax
     import jax.numpy as jnp
 
     d = str(tmp_path / "trace")
     with profiling.trace(d):
         with profiling.stage("cost"):
             x = jnp.ones((8, 8)) * 2
-    profiling.force_sync(x)
+    jax.block_until_ready(x)
     assert os.path.isdir(d) and os.listdir(d)
     # no-op mode
     with profiling.trace(None):
@@ -118,68 +119,3 @@ def test_device_lock_stale_holder_pid(tmp_path, monkeypatch):
     assert devlock.holder_info() is None
     with devlock.device_lock("taker", timeout_s=0):
         assert devlock.holder_info()["label"] == "taker"
-
-
-def test_aotcache_prune(tmp_path, monkeypatch):
-    from aswstereomatch_tpu.utils import aotcache
-
-    monkeypatch.setenv("ASW_AOT_CACHE_DIR", str(tmp_path))
-    paths = []
-    for i in range(4):
-        p = tmp_path / f"entry{i}.jaxexec"
-        p.write_bytes(b"x" * 1000)
-        os.utime(p, (1000 + i, 1000 + i))  # entry0 oldest
-        paths.append(p)
-    # keep= pins the oldest file even though LRU would evict it first;
-    # the other three go (4000 B -> budget 1500 B needs 3 evictions).
-    freed = aotcache.prune(keep=str(paths[0]), max_bytes=1500)
-    assert freed == 3000
-    assert paths[0].exists()
-    assert not any(p.exists() for p in paths[1:])
-    # under budget: no-op
-    assert aotcache.prune(max_bytes=1 << 30) == 0
-    # orphaned .tmp from a writer killed mid-pickle: swept once stale (>1 h),
-    # left alone while fresh (could be a live writer's in-progress dump)
-    stale = tmp_path / "dead.jaxexec.tmp"
-    fresh = tmp_path / "live.jaxexec.tmp"
-    stale.write_bytes(b"x")
-    fresh.write_bytes(b"x")
-    os.utime(stale, (1000, 1000))
-    aotcache.prune(max_bytes=1 << 30)
-    assert not stale.exists() and fresh.exists()
-    # malformed env budget must not break the caller (save() contract)
-    os.environ["ASW_AOT_CACHE_MAX_BYTES"] = "2G"
-    try:
-        with pytest.warns(UserWarning, match="not an int"):
-            aotcache.prune()
-    finally:
-        del os.environ["ASW_AOT_CACHE_MAX_BYTES"]
-
-
-def test_aotcache_source_hash_allowlist():
-    """The source hash must (a) cover every compute-relevant module and
-    (b) ignore host-side edits — a docs/tools/utils-io tweak stranding a
-    cached multi-minute Mosaic executable is the round-2 failure mode
-    (VERDICT round-2 item 4)."""
-    from aswstereomatch_tpu.utils import aotcache
-
-    # Allowlisted anchors must exist on disk; a rename would silently
-    # drop them from the hash.
-    for f in aotcache._COMPUTE_FILES:
-        assert os.path.exists(os.path.join(aotcache._PKG_DIR, f)), f
-    for d in aotcache._COMPUTE_DIRS:
-        assert os.path.isdir(os.path.join(aotcache._PKG_DIR, d)), d
-    # Deterministic, and equal to the import-time pin when sources are
-    # unchanged (bench processes rely on this equality across runs).
-    h = aotcache._compute_source_hash()
-    assert h == aotcache._compute_source_hash() == aotcache._SOURCE_HASH
-    # Host-only modules stay out: verify by construction, not by edit —
-    # every hashed path lives under an allowlisted root.
-    allowed = tuple(
-        os.path.join(aotcache._PKG_DIR, d) + os.sep
-        for d in aotcache._COMPUTE_DIRS
-    )
-    anchored = {os.path.join(aotcache._PKG_DIR, f) for f in aotcache._COMPUTE_FILES}
-    for p in aotcache._hashed_paths():
-        assert p in anchored or p.startswith(allowed), p
-        assert "aotcache" not in os.path.basename(p)

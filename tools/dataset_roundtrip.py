@@ -19,7 +19,7 @@ reference's whole L0..L7 file workflow), and the tool asserts GT decode
 fidelity (synthetic integer disparities make the scale round trip exact).
 Writes bench_results/dataset_roundtrip.json.
 
-Usage: python tools/dataset_roundtrip.py [--dir /tmp/asw_datasets]
+Usage: python tools/dataset_roundtrip.py [--dir DIR]
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -76,9 +77,9 @@ def write_scene(dir_: str, scene: str, seed: int):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="/tmp/asw_datasets")
+    ap.add_argument("--dir", default=os.path.join(tempfile.gettempdir(),
+                                                  "asw_datasets"))
     ap.add_argument("--out", default="bench_results/dataset_roundtrip.json")
-    ap.add_argument("--backend", default=None, choices=["jnp", "pallas"])
     args = ap.parse_args()
 
     rows = []
@@ -96,8 +97,6 @@ def main():
             "--out", os.path.join(args.dir, scene, "disp_ours.png"),
             "--err-out", os.path.join(args.dir, scene, "err.png"),
         ]
-        if args.backend:
-            cmd += ["--backend", args.backend]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             print(r.stdout[-2000:], r.stderr[-2000:], file=sys.stderr)

@@ -1,26 +1,20 @@
-"""Sharded-layout validation at FLAGSHIP geometry (round-5 verdict task 1).
+"""Sharded-layout validation at FLAGSHIP geometry.
 
-The multi-chip correctness story rests on the tiled==untiled bit-exactness
-invariant (SURVEY.md section 4.3).  Before round 5 it was only exercised at
-toy shapes (96x64, D=16, r<=4), far from the boundaries the production
-geometry actually sits on:
+The multi-device correctness story rests on the tiled==untiled
+bit-exactness invariant (SURVEY.md section 4.3).  This tool exercises it at
+the production geometry's boundaries, not only at toy shapes:
 
-  - x-tiled strip export requires ``D - 1 <= TILE_X``; at KITTI D=128 the
-    adaptive tile picks TILE_X=128 for the 621/311-wide shards, so the
-    bound holds with ZERO slack (127 <= 128).
-  - the separable kernel's horizontal wrap bound ``TXS + K <= 129`` has
-    zero slack at r=16 (96 + 33 = 129).
+  - x-tiling at KITTI width over 4 shards: non-divisible 311/310-wide
+    shards against the r + D - 1 = 143 right-image halo;
   - y-tiling at tile=2, H=36 puts 18 rows/shard against the halo bound
-    r + 1 = 17 — one row of slack.
+    r + 1 = 17 — one row of slack;
+  - d-sharding: 16 disparities/shard over 8 shards at D=128.
 
-This tool runs every sharded layout (y-tile ring halo, x-tile with the
-D_max right-strip halo, d-shard lexicographic combine, and the sharded
-separable mode) at width 1242, D=128, r=16 on the 8-device virtual CPU
-mesh, asserting each output is bit-for-bit equal to the unsharded pipeline
-— heights reduced (36 rows jnp / 8 rows interpret-Pallas) because the
-tight bounds are width/D-dependent, not height-dependent.  The
-interpret-Pallas row drives the REAL x-lanes kernel (strip export at its
-exact boundary) through pl.pallas_call's interpreter.
+It runs every sharded layout (y-tile ring halo, x-tile with the D_max
+right-strip halo, d-shard lexicographic combine) for exact and separable
+ASW at width 1242, D=128, r=16 on the 8-device virtual CPU mesh, asserting
+each output is bit-for-bit equal to the unsharded pipeline — heights are
+reduced (36 rows) because the tight bounds are width/D-dependent.
 
 Run:  python tools/flagship_sharded_check.py          (writes
       bench_results/sharded_flagship.json)
@@ -122,30 +116,6 @@ def run_checks(progress=print) -> dict:
             "16 disparities/shard over 8 shards, lexicographic "
             "(cost, lower-d) combine at D=128",
             (h, WIDTH), "tile=8 (d)",
-        )
-
-    # Interpret-Pallas x-tiled: the REAL x-lanes kernel with strip export
-    # at its exact boundary (D-1 = 127 <= TILE_X = 128 — the adaptive tile
-    # picks TX=128 for both the 621- and 311-wide shard widths).
-    cfg_k = _base_cfg().replace(backend="pallas")
-    h = 8
-    pair = synthetic.make_pair(height=h, width=WIDTH, max_disparity=D_MAX,
-                               seed=9)
-    left, right = jnp.asarray(pair["left"]), jnp.asarray(pair["right"])
-    t0 = time.perf_counter()
-    ref_k = np.asarray(J(pipeline.match_pair, cfg=cfg_k)(left, right))
-    progress(f"pallas_interpret: untiled ref ({h}x{WIDTH}) in "
-             f"{time.perf_counter() - t0:.0f}s")
-    for ntile in (2, 4):
-        check(
-            f"pallas_interpret/x_tile{ntile}", np.asarray(
-                J(tiling.match_pair_tiled_x, cfg=cfg_k,
-                  device_mesh=mesh_lib.build_mesh(data=1, tile=ntile))(
-                      left, right)
-            ), ref_k,
-            f"strip export D-1=127 <= TILE_X=128 at shard width "
-            f"{WIDTH // ntile} (zero slack)",
-            (h, WIDTH), f"tile={ntile} (x)",
         )
 
     import jax

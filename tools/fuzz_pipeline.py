@@ -1,10 +1,11 @@
-"""Extended randomized fuzz of the full pipeline across configs, kernel
-layouts, and shardings (CPU, interpret-mode Pallas).
+"""Extended randomized fuzz of the full pipeline across configs and
+shardings (CPU, 8 virtual devices).
 
 Per trial: random geometry + StereoConfig; checks
-  1. pallas pipeline vs jnp pipeline (subpixel-tolerance agreement),
+  1. jnp pipeline vs the NumPy loop oracle (subpixel-tolerance agreement),
   2. y-tiled == untiled bit-exact on a random tile count,
-  3. (when supported) d-sharded == unsharded-xlanes bit-exact.
+  3. batch-of-2 == single pair (every third trial),
+  4. (ASW, D divisible by 4) d-sharded == unsharded bit-exact.
 
 Complements the pinned 8-seed test-suite fuzz with an open-ended budget:
     python tools/fuzz_pipeline.py --trials 100 [--seed0 0]
@@ -37,7 +38,7 @@ def main():
     import jax.numpy as jnp
 
     from aswstereomatch_tpu.config import StereoConfig
-    from aswstereomatch_tpu.models import pipeline
+    from aswstereomatch_tpu.models import oracle_numpy, pipeline
     from aswstereomatch_tpu.parallel import dshard
     from aswstereomatch_tpu.parallel import mesh as mesh_lib
     from aswstereomatch_tpu.parallel import tiling
@@ -58,8 +59,6 @@ def main():
             cost=str(rng.choice(["ad", "tad_grad"])),
             asw_symmetric=bool(rng.choice([True, False])),
             aggregation=agg,
-            # separable speed mode (asw only); forced-pallas separable
-            # exercises the sep_dlanes kernel end to end
             asw_separable=(
                 agg == "asw" and bool(rng.choice([True, False, False]))
             ),
@@ -71,10 +70,10 @@ def main():
             subpixel=bool(rng.choice([True, False])),
             median_filter=bool(rng.choice([True, False])),
             median_mode=str(rng.choice(["plain", "weighted"])),
-            backend="pallas",
         )
-        h = int(rng.integers(12, 40))
-        w = int(rng.integers(max(24, D + 8), 90))
+        # small enough for the loop oracle
+        h = int(rng.integers(12, 28))
+        w = int(rng.integers(max(24, D + 8), 56))
         pair = synthetic.make_pair(height=h, width=w, max_disparity=D,
                                    seed=seed)
         l, r = jnp.asarray(pair["left"]), jnp.asarray(pair["right"])
@@ -85,12 +84,10 @@ def main():
                  f"{cfg.cost} lr={cfg.lr_check} sub={cfg.subpixel} "
                  f"med={cfg.median_filter}/{cfg.median_mode}")
         try:
-            d_pal = np.asarray(J(pipeline.match_pair, cfg=cfg)(l, r))
-            d_jnp = np.asarray(
-                J(pipeline.match_pair, cfg=cfg.replace(backend="jnp"))(l, r)
-            )
-            agree = np.mean(np.abs(d_pal - d_jnp) <= 0.51)
-            assert agree > 0.99, f"pallas vs jnp agree {agree:.4%}"
+            d_jnp = np.asarray(J(pipeline.match_pair, cfg=cfg)(l, r))
+            d_orc = oracle_numpy.match_pair(pair["left"], pair["right"], cfg)
+            agree = np.mean(np.abs(d_jnp - d_orc) <= 0.51)
+            assert agree > 0.98, f"jnp vs oracle agree {agree:.4%}"
 
             n = int(rng.choice([2, 4]))
             if h // n >= cfg.window_radius + 1:
@@ -98,38 +95,23 @@ def main():
                 d_t = np.asarray(
                     J(tiling.match_pair_tiled, cfg=cfg, device_mesh=m)(l, r)
                 )
-                np.testing.assert_array_equal(d_t, d_pal)
+                np.testing.assert_array_equal(d_t, d_jnp)
 
-            if t % 3 == 0:  # batch API: batch-of-2 == single, both routes
+            if t % 3 == 0:  # batch API: batch-of-2 == single
                 d_b = np.asarray(
                     J(pipeline.match_batch, cfg=cfg)(
                         jnp.stack([l, l]), jnp.stack([r, r])
                     )
                 )
-                np.testing.assert_array_equal(d_b[0], d_pal)
-                np.testing.assert_array_equal(d_b[1], d_pal)
+                np.testing.assert_array_equal(d_b[0], d_jnp)
+                np.testing.assert_array_equal(d_b[1], d_jnp)
 
-            if D % 4 == 0 and cfg.aggregation in ("asw", "box"):
+            if D % 4 == 0 and cfg.aggregation == "asw":
                 m = mesh_lib.build_mesh(data=1, tile=4)
-                if cfg.asw_separable:
-                    # no separable x-lanes/d-shard kernel (forced-pallas
-                    # raises loudly, tested); fuzz the jnp d-shard route
-                    jcfg = cfg.replace(backend="jnp")
-                    d_d = np.asarray(
-                        J(dshard.match_pair_dsharded, cfg=jcfg,
-                          device_mesh=m)(l, r)
-                    )
-                    np.testing.assert_array_equal(d_d, d_jnp)
-                else:
-                    ref_x = np.asarray(
-                        J(pipeline.match_pair,
-                          cfg=cfg.replace(kernel_layout="xlanes"))(l, r)
-                    )
-                    d_d = np.asarray(
-                        J(dshard.match_pair_dsharded, cfg=cfg,
-                          device_mesh=m)(l, r)
-                    )
-                    np.testing.assert_array_equal(d_d, ref_x)
+                d_d = np.asarray(
+                    J(dshard.match_pair_dsharded, cfg=cfg, device_mesh=m)(l, r)
+                )
+                np.testing.assert_array_equal(d_d, d_jnp)
             print(f"[ok] {label} ({time.time()-t0:.1f}s)", flush=True)
         except Exception as e:  # noqa: BLE001
             failures += 1

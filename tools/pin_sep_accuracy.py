@@ -18,11 +18,13 @@ regime-dependent:
   3. GT-accuracy parity on the hard regime: sep may cost at most 0.3pp
      bad-2.0 vs exact (measured: within 0.11pp, sometimes better).
 
-Runs both pipelines on the TPU (exact jnp at KITTI takes > 9 min/pair on
-CPU — measured round 3 — so this record is produced on hardware and pinned
-by tests/test_accuracy_regression.py::test_separable_vs_exact_kitti_record,
-which asserts the committed JSON).  Re-run after any change to the
-separable kernel/oracle/routing and commit the refreshed record.
+Runs both pipelines on the GPU and refuses to run without one (exact ASW
+at KITTI takes > 9 min/pair on CPU, so this record is produced on the card
+and pinned by
+tests/test_accuracy_regression.py::test_separable_vs_exact_kitti_record,
+which asserts the committed JSON).  The record names the card and its
+power limit.  Re-run after any change to the config surface or the
+separable aggregation and commit the refreshed record.
 
 Usage: python tools/pin_sep_accuracy.py [--seeds 0 1 2] [--geom kitti]
 Writes bench_results/sep_vs_exact_kitti.json.
@@ -53,13 +55,18 @@ def main():
                     "bench_results/seplo_vs_exact_kitti.json)")
     args = ap.parse_args()
 
-    import jax
     import jax.numpy as jnp
 
     from aswstereomatch_tpu.config import StereoConfig
+    from aswstereomatch_tpu.models.pipeline import StereoMatcher
     from aswstereomatch_tpu.utils import (
-        aotcache, devlock, evaluate, synthetic,
+        compile_cache, devlock, device, evaluate, synthetic,
     )
+
+    compile_cache.enable()
+    device.require_gpu()
+    card = device.card_line()
+    print(f"card: {card}", flush=True)
 
     h, w, d = synthetic.GEOMETRIES[args.geom]
     base = dict(
@@ -77,6 +84,7 @@ def main():
         ("hard", lambda s: synthetic.make_hard_pair(h, w, d, seed=s)),
     ]
     rows = []
+    fn_e, fn_s = StereoMatcher(cfg_exact), StereoMatcher(cfg_sep)
     with devlock.device_lock("pin_sep_accuracy", timeout_s=300):
         for regime, mk in regimes:
             for seed in args.seeds:
@@ -85,8 +93,6 @@ def main():
                 r = jnp.asarray(pair["right"])
                 nonocc = ~pair["occluded"]
                 t0 = time.perf_counter()
-                fn_e, src_e = aotcache.cached_match_pair(cfg_exact, l, r)
-                fn_s, src_s = aotcache.cached_match_pair(cfg_sep, l, r)
                 de = np.asarray(fn_e(l, r))
                 ds = np.asarray(fn_s(l, r))
                 rep_e = evaluate.bad_report(de, pair["gt"], valid=nonocc)
@@ -116,7 +122,6 @@ def main():
                     "exact_epe": round(rep_e["epe"], 5),
                     "sep_epe": round(rep_s["epe"], 5),
                     "wall_s": round(time.perf_counter() - t0, 2),
-                    "compile_source": [src_e, src_s],
                 }
                 rows.append(row)
                 print(json.dumps(row), flush=True)
@@ -130,7 +135,8 @@ def main():
         ),
         "config_hash_exact": cfg_exact.config_hash(),
         "config_hash_sep": cfg_sep.config_hash(),
-        "device": str(jax.devices()[0]),
+        "device": device.jax_device_record(),
+        "card": card,
         "rows": rows,
     }
     out = os.path.join(
@@ -159,7 +165,8 @@ def main():
         f"{w3 * 100:.3f}pp (<={b_cost * 100:.1f}pp) "
         f"=> {'PASS' if ok else 'FAIL'}"
     )
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

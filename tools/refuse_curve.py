@@ -1,6 +1,6 @@
 """Coverage-vs-accuracy operating curves vs cv2 BM/SGBM (hard regime).
 
-Round-5 verdict task 7: refuse-mode as a tunable operating curve rather
+Refuse-mode as a tunable operating curve rather
 than a single ``fill_holes=False`` point.  The per-pixel confidence is the
 WTA-uniqueness margin (``pipeline.match_pair_with_confidence``) — the knob
 cv2.StereoBM/SGBM ship as ``uniquenessRatio`` — composed with the LR
@@ -20,7 +20,6 @@ Run: python tools/refuse_curve.py [--geom kitti venus] [--seeds 7 8]
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
 import sys
@@ -29,22 +28,17 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("JAX_PLATFORMS", "").strip().lower() == "cpu":
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 OUR_RATIOS = (0.0, 2.0, 5.0, 8.0, 12.0, 18.0, 25.0, 40.0)
 CV2_RATIOS = (5, 10, 15)
 
 
 def run(geoms, seeds, out_path):
     import cv2
-    import jax
     import jax.numpy as jnp
 
     from aswstereomatch_tpu.config import StereoConfig
-    from aswstereomatch_tpu.utils import aotcache, evaluate, synthetic
+    from aswstereomatch_tpu.models.pipeline import StereoMatcher
+    from aswstereomatch_tpu.utils import evaluate, synthetic
 
     rows = []
 
@@ -75,10 +69,9 @@ def run(geoms, seeds, out_path):
                     fill_holes=False, subpixel=True, median_filter=False,
                 )
 
-                fn, _src = aotcache.cached_match_pair_with_confidence(
-                    cfg, l_dev, r_dev
+                disp, uniq, lrv = StereoMatcher(cfg).with_confidence(
+                    l_dev, r_dev
                 )
-                disp, uniq, lrv = fn(l_dev, r_dev)
                 disp = np.asarray(disp)
                 uniq = np.asarray(uniq)
                 lrv = np.asarray(lrv)
@@ -88,8 +81,7 @@ def run(geoms, seeds, out_path):
                         disp, (disp >= 0) & (uniq >= rr), gt, nonocc)
                 # dense map for the exact-matched-coverage rows
                 cfg_dense = cfg.replace(fill_holes=True, median_filter=True)
-                dfn, _ = aotcache.cached_match_pair(cfg_dense, l_dev, r_dev)
-                dense = np.asarray(dfn(l_dev, r_dev))
+                dense = np.asarray(StereoMatcher(cfg_dense)(l_dev, r_dev))
                 if mode == "exact":
                     dense_exact = dense
                 add(name, seed, f"ours_{mode}_dense", "fill_all",
@@ -172,7 +164,8 @@ def main():
 
 
 if __name__ == "__main__":
-    from aswstereomatch_tpu.utils import devlock
+    from aswstereomatch_tpu.utils import compile_cache, devlock
 
+    compile_cache.enable()
     with devlock.device_lock("refuse_curve", timeout_s=300):
         main()
